@@ -6,11 +6,19 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes the
 main path gives it (exact equality: the write moves 4-byte words and
-does no arithmetic on them), then drives the main path — the two-phase
-and the TAM collective write of the BTIO deployment (16 nodes x 64 ranks,
-one global aggregator per node, a 512 MiB file, 32 rounds of 1 MiB
-windows) — through ``make_twophase_write`` and
-``make_tam_write(use_kernels=True)`` with ``kernel_fusion="fused_round"``.
+does no arithmetic on them), checks small writes and reads with every
+slow-hop codec on the card against the CPU, then drives the main path
+on the BTIO deployment (16 nodes x 64 ranks, one global aggregator per
+node, a 512 MiB file, 32 rounds of 1 MiB windows) with
+``kernel_fusion="fused_round"``:
+
+* the two-phase and the TAM collective write (``make_twophase_write``,
+  ``make_tam_write(use_kernels=True)``);
+* the same two writes with ``slow_hop_codec="rle"`` on a payload whose
+  8-element cells are half zero (a sparse checkpoint page), whose wire
+  the zero-skip kernels encode and decode;
+* the two-phase and the TAM collective read with ``"rle"``
+  (``make_twophase_read``, ``make_tam_read``), reading that file back.
 
 Every phase prints one JSON line; any failed check raises, and the run
 exits non-zero. The line before the last lists every kernel with its
@@ -39,18 +47,22 @@ REPLACES = {
     "bitonic_sort": "src/repro/kernels/sort.py:72",
     "coalesce": "src/repro/kernels/coalesce_kernel.py:73",
     "fused_sort_pack": "src/repro/kernels/fused_round.py:64",
+    "zero_skip_encode": "src/repro/kernels/fused_round.py:129",
+    "zero_skip_decode": "src/repro/kernels/fused_round.py:172",
 }
 SOURCES = {
     "bitonic_sort": "src/repro_torch/kernels/csrc/sort.cu",
     "coalesce": "src/repro_torch/kernels/csrc/coalesce_kernel.cu",
     "fused_sort_pack": "src/repro_torch/kernels/csrc/fused_round.cu",
+    "zero_skip_encode": "src/repro_torch/kernels/csrc/zero_skip.cu",
+    "zero_skip_decode": "src/repro_torch/kernels/csrc/zero_skip.cu",
 }
 TABLE = (   # every pallas_call of the reference, by def line
     ("fused_sort_pack", "src/repro/kernels/fused_round.py:64", "ported"),
     ("bitonic_sort", "src/repro/kernels/sort.py:72", "ported"),
     ("coalesce", "src/repro/kernels/coalesce_kernel.py:73", "ported"),
-    ("zero_skip_encode", "src/repro/kernels/fused_round.py:129", "to_port"),
-    ("zero_skip_decode", "src/repro/kernels/fused_round.py:172", "to_port"),
+    ("zero_skip_encode", "src/repro/kernels/fused_round.py:129", "ported"),
+    ("zero_skip_decode", "src/repro/kernels/fused_round.py:172", "ported"),
     ("pack", "src/repro/kernels/pack.py:56", "to_port"),
     ("flash_attention_fused", "src/repro/kernels/flash.py:92", "to_port"),
 )
@@ -170,6 +182,27 @@ def drain_inputs(torch, rows, cap, live, out_len, dcap, gen, dev):
     return off, ln, st, data, base.to(torch.int32), covered
 
 
+def sparse_rows(torch, rows, n, gen, dev):
+    """Nonzero int32 rows in which half of the 8-element cells are zero
+    (a sparse checkpoint page, the payload the rle codec exists for)."""
+    x = torch.randint(1, 2**31 - 1, (rows, n), generator=gen, device=dev,
+                      dtype=torch.int32)
+    keep = torch.rand(rows, n // 8, 1, generator=gen, device=dev) < 0.5
+    x.view(rows, n // 8, 8).mul_(keep)
+    return x
+
+
+def sparse_cells(D, seed):
+    """``D`` with half of its 8-element cells zeroed, chosen from
+    ``seed`` (numpy)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    D = D.copy()
+    cells = D.reshape(D.shape[0], -1, 8)
+    cells[rng.random(cells.shape[:2]) < 0.5] = 0
+    return D
+
+
 # ---------------------------------------------------------------- phases
 
 def phase_kernels(torch, dev, reps):
@@ -247,6 +280,56 @@ def phase_kernels(torch, dev, reps):
         results.setdefault("fused_sort_pack", rec)
         del o, ln, st, data, got
         torch.cuda.empty_cache()
+
+    # the rle wire: two-phase write buckets [1024 ranks x 16, 131072],
+    # TAM write buckets [16 groups x 16, 262144], a read's windows
+    # [16, 262144]; encode reads n words and writes 2n, decode the reverse
+    for rows, n in ((16384, 131072), (256, 262144), (16, 262144)):
+        x = sparse_rows(torch, rows, n, gen, dev)
+        chunk = max(1, (1 << 27) // n)   # the plain versions' int64 temps
+        spans = [slice(i, i + chunk) for i in range(0, rows, chunk)]
+        vals, pos = fused_round.zero_skip_encode(x)
+        err_e = max(max_abs_err(torch, (vals[c], pos[c]),
+                                ref.zero_skip_encode_ref(x[c]))
+                    for c in spans)
+        require(err_e == 0, f"zero_skip_encode [{rows}, {n}] != plain")
+        b, by = bound(12 * rows * n, 2 * rows * n)
+        rec = {"shape": [rows, n], "nonzero": int((x != 0).sum().item()),
+               "max_abs_err": err_e,
+               "ms": timed(lambda: fused_round.zero_skip_encode(x)),
+               "plain_ms": timed(lambda: [ref.zero_skip_encode_ref(x[c])
+                                          for c in spans],
+                                 max(2, reps // 4)),
+               "library_ms": None, "bound_ms": b, "bound_by": by}
+        emit({"phase": "kernel", "kernel": "zero_skip_encode", **rec})
+        results.setdefault("zero_skip_encode", rec)
+
+        out = fused_round.zero_skip_decode(vals, pos)
+        require(torch.equal(out, x), f"zero_skip [{rows}, {n}] round trip")
+        del x
+        err_d = max(max_abs_err(torch, (out[c],),
+                                (ref.zero_skip_decode_ref(vals[c],
+                                                          pos[c]),))
+                    for c in spans)
+        require(err_d == 0, f"zero_skip_decode [{rows}, {n}] != plain")
+        del out
+        torch.cuda.empty_cache()
+        b, by = bound(12 * rows * n, rows * n)
+        rec = {"shape": [rows, n], "max_abs_err": err_d,
+               "ms": timed(lambda: fused_round.zero_skip_decode(vals, pos)),
+               "plain_ms": timed(lambda: [ref.zero_skip_decode_ref(
+                   vals[c], pos[c]) for c in spans], max(2, reps // 4)),
+               "bound_ms": b, "bound_by": by}
+        # library: one scatter_ into a zeroed [rows, n + 1] buffer whose
+        # last column takes pos -1 (index prepared outside the timing)
+        idx = torch.where(pos >= 0, pos, n).to(torch.int64)
+        stage = torch.empty((rows, n + 1), dtype=vals.dtype, device=dev)
+        rec["library_ms"] = timed(
+            lambda: stage.zero_().scatter_(1, idx, vals))
+        emit({"phase": "kernel", "kernel": "zero_skip_decode", **rec})
+        results.setdefault("zero_skip_decode", rec)
+        del vals, pos, idx, stage
+        torch.cuda.empty_cache()
     del flush
     return results
 
@@ -285,6 +368,82 @@ def phase_small(torch, dev):
     emit({"phase": "small_vs_cpu", "writes": n, "ok": True})
 
 
+EF_BAND = 5e-2   # the CPU tests' relative band for ef-int8
+
+
+def phase_small_codecs(torch, dev):
+    """Small BTIO writes with the rle and ef-int8 codecs (ef-int8 on a
+    float32 payload) and reads with and without rle, fused and unfused,
+    both methods: the card equals the CPU — bytes and every stats key
+    for rle and the reads, within one int8 step of the largest scale
+    (and the 5e-2 band against ``write_reference``) for ef-int8."""
+    import numpy as np
+
+    from repro_torch.core import (IOConfig, RankMesh, contiguous_layout,
+                                  make_tam_read, make_tam_write,
+                                  make_twophase_read, make_twophase_write,
+                                  write_reference)
+    from repro_torch.io_patterns.generators import btio_write_pattern
+    O, L, C, D = btio_write_pattern(16, 64, 4, 8, seed=2)
+    D = sparse_cells(D, 2)
+    payloads = {"rle": D,
+                "ef-int8": D.astype(np.float32) / np.float32(1 << 20)}
+    mesh = RankMesh(4, 1, 4)
+    layout = contiguous_layout(4 * 64 * 64 * 8, 4)
+    counts = {"writes": 0, "reads": 0}
+    for fusion in (None, "fused_round"):
+        for codec, P in payloads.items():
+            ref = write_reference(layout, O, L, C, P)
+            cfg = IOConfig(req_cap=O.shape[1], data_cap=P.shape[1],
+                           coalesce_cap=64, cb_buffer_size=4096,
+                           pipeline=True, pipeline_depth=2,
+                           kernel_fusion=fusion, slow_hop_codec=codec)
+            for name, mk, kw in (("twophase", make_twophase_write, {}),
+                                 ("tam", make_tam_write,
+                                  {"use_kernels": True})):
+                tag = f"small {name}/{codec}/{fusion}"
+                f_gpu, s_gpu = mk(mesh, layout, cfg, device=dev,
+                                  **kw)(O, L, C, P)
+                f_cpu, s_cpu = mk(mesh, layout, cfg, device="cpu",
+                                  **kw)(O, L, C, P)
+                got = f_gpu.cpu().numpy().reshape(-1)
+                want = f_cpu.numpy().reshape(-1)
+                if codec == "rle":
+                    require(got.tobytes() == ref.tobytes() == want.tobytes(),
+                            f"{tag}: file != write_reference / cpu")
+                else:
+                    step = np.abs(want).max() / 127
+                    require(np.abs(got - want).max() <= step,
+                            f"{tag}: card vs cpu beyond one int8 step")
+                    require(np.abs(got - ref).max()
+                            < EF_BAND * np.abs(ref).max(),
+                            f"{tag}: outside the ef-int8 band")
+                for k in s_cpu:
+                    require(s_gpu[k].cpu().tolist() == s_cpu[k].tolist(),
+                            f"{tag}: stats {k} card != cpu")
+                counts["writes"] += 1
+        ref = write_reference(layout, O, L, C, D)
+        file = torch.as_tensor(ref).reshape(4, -1)
+        for codec in (None, "rle"):
+            cfg = IOConfig(req_cap=O.shape[1], data_cap=D.shape[1],
+                           cb_buffer_size=4096, pipeline=True,
+                           pipeline_depth=2, kernel_fusion=fusion,
+                           slow_hop_codec=codec)
+            for name, mk in (("twophase", make_twophase_read),
+                             ("tam", make_tam_read)):
+                got = mk(mesh, layout, cfg, device=dev)(O, L, C,
+                                                        file).cpu()
+                want = mk(mesh, layout, cfg, device="cpu")(O, L, C, file)
+                require(torch.equal(got, want),
+                        f"small read {name}/{codec}/{fusion}: card != cpu")
+                for p in range(D.shape[0]):
+                    n = int(L[p].sum())
+                    require(np.array_equal(got[p, :n].numpy(), D[p, :n]),
+                            f"small read {name}/{codec}/{fusion}: rank {p}")
+                counts["reads"] += 1
+    emit({"phase": "small_codecs_vs_cpu", **counts, "ok": True})
+
+
 STALL = "Command Buffer Full"   # the profiler's record of a blocked launch
 
 
@@ -298,16 +457,21 @@ def _union_us(spans) -> float:
     return total
 
 
-# round-engine steps timed by CUDA events in the profiled write: the
-# exchange and drain of every round (_run_rounds' closures) and, inside
-# them, the routing helpers and kernel wrappers they call
+# round-engine steps timed by CUDA events in the profiled runs: the
+# exchange and drain of every write round (_run_rounds' closures) and,
+# inside them, the routing helpers and kernel wrappers they call; a read
+# has no exchange/drain pair, only its index set-up (repeat_index) and
+# the rle wrappers inside its fetch
 STEPS = {"repro_torch.core.rounds": ("_compact_active", "repack_sorted",
                                      "bucket_by_dest", "flatten_buckets",
-                                     "sort_with", "_a2a"),
+                                     "sort_with", "_a2a", "repeat_index"),
          "repro_torch.kernels.ops": ("sort_requests_with", "coalesce",
-                                     "fused_drain_pack")}
+                                     "fused_drain_pack",
+                                     "rle_zero_skip_encode",
+                                     "rle_zero_skip_decode")}
 PORT_KERNELS = ("sort_rows_kernel", "coalesce_rows_kernel",
-                "pack_tiles_kernel")
+                "pack_tiles_kernel", "zero_skip_encode_kernel",
+                "zero_skip_decode_kernel")
 
 
 @contextlib.contextmanager
@@ -332,9 +496,9 @@ def step_timers(torch, totals):
             return out
         return run
 
-    def run_rounds(n, buf, exchange, drain, depth):
+    def run_rounds(n, buf, exchange, drain, depth, codec_state=()):
         return saved[0][2](n, buf, timed("exchange", exchange),
-                           timed("drain", drain), depth)
+                           timed("drain", drain), depth, codec_state)
 
     saved.append((rounds, "_run_rounds", rounds._run_rounds))
     rounds._run_rounds = run_rounds
@@ -401,10 +565,17 @@ def profile_write(torch, write, inputs, top=10):
 
 
 def phase_main(torch, dev):
-    """The main path at deployment size: both collective writes."""
+    """The main path at deployment size: the two collective writes, the
+    same writes with the rle codec on a half-zero payload, and the two
+    rle reads of that file. Every run is timed alone after a warm-up
+    run, with the launch counts set to 0 just before it and read just
+    after; the profiled runs come after all counts are read."""
+    from dataclasses import replace
+
     from repro_torch import kernels
     from repro_torch.core import (IOConfig, RankMesh, contiguous_layout,
-                                  make_tam_write, make_twophase_write,
+                                  make_tam_read, make_tam_write,
+                                  make_twophase_read, make_twophase_write,
                                   requests_from_numpy, write_reference)
     from repro_torch.io_patterns.generators import btio_write_pattern
     n_nodes = 16
@@ -412,66 +583,108 @@ def phase_main(torch, dev):
     n_cells = 2048                   # 32 x 32 rank grid, 64 x 64 cells a rank
     t0 = time.perf_counter()
     O, L, C, D = btio_write_pattern(n_ranks, n_cells, 4, 8, seed=0)
+    D_rle = sparse_cells(D, 0)
     file_len = 4 * n_cells * n_cells * 8
     layout = contiguous_layout(file_len, n_nodes)
-    ref = write_reference(layout, O, L, C, D)
+    refs = {"dense": write_reference(layout, O, L, C, D),
+            "rle": write_reference(layout, O, L, C, D_rle)}
     inputs = requests_from_numpy(O, L, C, D, device=dev)
+    inputs_rle = requests_from_numpy(O, L, C, D_rle, device=dev)
     mesh = RankMesh(n_nodes, 1, 64)
     cfg = IOConfig(req_cap=O.shape[1], data_cap=D.shape[1], coalesce_cap=512,
                    cb_buffer_size=262144, kernel_fusion="fused_round")
-    writers = {"twophase": make_twophase_write(mesh, layout, cfg, device=dev),
-               "tam": make_tam_write(mesh, layout, cfg, use_kernels=True,
-                                     device=dev)}
-    plan = writers["tam"].plan
+    cfg_rle = replace(cfg, slow_hop_codec="rle")
+    # name -> (run, inputs, payload for a write's reference / None)
+    writes = {
+        "twophase": (make_twophase_write(mesh, layout, cfg, device=dev),
+                     inputs, "dense"),
+        "tam": (make_tam_write(mesh, layout, cfg, use_kernels=True,
+                               device=dev), inputs, "dense"),
+        "twophase_rle": (make_twophase_write(mesh, layout, cfg_rle,
+                                             device=dev), inputs_rle, "rle"),
+        "tam_rle": (make_tam_write(mesh, layout, cfg_rle, use_kernels=True,
+                                   device=dev), inputs_rle, "rle"),
+    }
+    readers = {"twophase_rle_read": make_twophase_read(mesh, layout,
+                                                       cfg_rle, device=dev),
+               "tam_rle_read": make_tam_read(mesh, layout, cfg_rle,
+                                             device=dev)}
+    plans = {**{k: v[0].plan for k, v in writes.items()},
+             **{k: r.plan for k, r in readers.items()}}
     emit({"phase": "deployment", "ranks": n_ranks, "nodes": n_nodes,
           "ranks_per_node": 64, "n_cells": n_cells, "file_elems": file_len,
-          "domain_len": plan.domain_len, "cb": plan.cb,
-          "rounds": {k: w.plan.n_rounds for k, w in writers.items()},
-          "depth": {k: w.plan.pipeline_depth for k, w in writers.items()},
+          "domain_len": plans["tam"].domain_len, "cb": plans["tam"].cb,
+          "rounds": {k: pl.n_rounds for k, pl in plans.items()},
+          "depth": {k: pl.pipeline_depth for k, pl in plans.items()},
           "req_cap": cfg.req_cap, "data_cap": cfg.data_cap,
+          "rle_zero_cells": float((D_rle.reshape(n_ranks, -1, 8) == 0)
+                                  .all(-1).mean()),
           "setup_s": time.perf_counter() - t0})
-    for w in writers.values():           # warm-up writes
-        w(*inputs)
-    torch.cuda.synchronize()
-    files = {}
-    launches = {}
-    kernels.reset_launch_counts()
-    for name, w in writers.items():
-        before = kernels.launch_counts()
-        torch.cuda.reset_peak_memory_stats(dev)
+
+    launches, files, runs = {}, {}, {}
+
+    def measured(name, fn, args):
+        fn(*args)                        # warm-up
         torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
         t = time.perf_counter()
-        f, stats = w(*inputs)
+        out = fn(*args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+        launches[name] = kernels.launch_counts()
+        runs[name] = (fn, args)
+        return out, {"wall_s": wall,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                     "launches": launches[name]}
+
+    for name, (w, args, payload) in writes.items():
+        (f, stats), rec = measured(name, w, args)
         stats = {k: v.cpu().tolist() for k, v in stats.items()}
-        after = kernels.launch_counts()
-        launches[name] = {k: after[k] - before[k] for k in after}
         files[name] = f.cpu().numpy().reshape(-1)
-        require(files[name].tobytes() == ref.tobytes(),
+        require(files[name].tobytes() == refs[payload].tobytes(),
                 f"{name}: file != write_reference")
         require(stats["dropped_requests"] == 0
                 and stats["dropped_elems"] == 0, f"{name}: drops {stats}")
-        emit({"phase": "main_path", "method": name, "wall_s": wall,
-              "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-              "file_equals_reference": True, "launches": launches[name],
-              "stats": stats})
+        emit({"phase": "main_path", "method": name, "direction": "write",
+              **rec, "file_equals_reference": True, "stats": stats})
+        if name == "twophase_rle":
+            file_rle = f                 # read back by the rle reads
         del f
-    require(files["twophase"].tobytes() == files["tam"].tobytes(),
-            "twophase file != tam file")
-    total = kernels.launch_counts()
-    for name, w in writers.items():     # after the counts are read
+    for a, b in (("twophase", "tam"), ("twophase_rle", "tam_rle")):
+        require(files[a].tobytes() == files[b].tobytes(),
+                f"{a} file != {b} file")
+
+    lengths = inputs_rle[1].to(torch.int64).sum(dim=1, keepdim=True)
+    live = torch.arange(D.shape[1], device=dev) < lengths
+    want = torch.where(live, inputs_rle[3], 0)
+    for name, r in readers.items():
+        got, rec = measured(name, r, (*inputs_rle[:3], file_rle))
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"{name}: payloads != what each rank wrote")
+        emit({"phase": "main_path", "method": name, "direction": "read",
+              **rec, "payloads_equal_written": True})
+        del got
+
+    for name, (fn, args) in runs.items():   # after the counts are read
         emit({"phase": "profile", "method": name,
-              **profile_write(torch, w, inputs)})
+              **profile_write(torch, fn, args)})
+    rle = ("zero_skip_encode", "zero_skip_decode")
     needed = {"twophase": ("fused_sort_pack",),
-              "tam": ("fused_sort_pack", "bitonic_sort", "coalesce")}
+              "tam": ("fused_sort_pack", "bitonic_sort", "coalesce"),
+              "twophase_rle": ("fused_sort_pack",) + rle,
+              "tam_rle": ("fused_sort_pack", "bitonic_sort", "coalesce")
+              + rle,
+              "twophase_rle_read": rle, "tam_rle_read": rle}
     for method, names in needed.items():
         for k in names:
             require(launches[method][k] > 0, f"{method}: {k} never launched")
-    return total
+    return {k: sum(c[k] for c in launches.values())
+            for k in kernels.launch_counts()}
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -504,11 +717,13 @@ def main() -> int:
 
     measured = phase_kernels(torch, dev, REPS)
     phase_small(torch, dev)
+    phase_small_codecs(torch, dev)
     launches = phase_main(torch, dev)
 
     emit({"phase": "kernel_status",
           "table": [{"name": n, "replaces": r, "status": s,
                      "launches": launches.get(n, 0)} for n, r, s in TABLE]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],

@@ -24,7 +24,7 @@ from repro_torch.core.spmd_exec import (  # noqa: F401
     RankMesh, make_collective_write, make_spmd_executor,
 )
 from repro_torch.core.twophase import (  # noqa: F401
-    make_twophase_write, plan_for, write_reference,
+    make_twophase_read, make_twophase_write, plan_for, write_reference,
 )
-from repro_torch.core.tam import make_tam_write  # noqa: F401
+from repro_torch.core.tam import make_tam_read, make_tam_write  # noqa: F401
 from repro_torch.core.rounds import peak_aggregator_buffer_elems  # noqa: F401

@@ -1,22 +1,26 @@
-"""Slow-hop codec registry: the numpy half.
+"""Slow-hop codec registry (port of ``repro.core.codec``).
 
-The port's copy of the reference's codec registry (``repro.core.codec``)
-without its tensor hooks. The planner looks codecs up by name
-(``passes.effective_workload`` and ``resolve_codec``) and reads their
-modeling attributes (``lossless``, ``modeled_ratio``,
-``jax_wire_overhead`` — the static wire width of one encoded element,
-kept under the reference's name so the two registries read alike), so
-this registry is enough to compile every plan the reference compiles.
-The host byte codecs (``encode_bytes`` / ``decode_bytes``) are numpy
-and come along unchanged.
+The planner looks codecs up by name (``passes.effective_workload`` and
+``resolve_codec``) and reads their modeling attributes (``lossless``,
+``modeled_ratio``, ``jax_wire_overhead`` — the static wire width of one
+encoded element, kept under the reference's name so the two registries
+read alike). The host byte codecs (``encode_bytes`` / ``decode_bytes``)
+are numpy and come along unchanged.
 
-The round engine's tensor encode/decode of the slow-hop payload is not
-ported yet: ``repro_torch.core.rounds`` raises ``NotImplementedError``
-for a plan whose ``slow_hop_codec`` is not ``None``.
+The tensor hooks are what the round engine (``core.rounds``) wraps
+around the slow hop: ``init_state(shape, dtype, device)`` makes the
+residual state (the empty tuple for stateless codecs),
+``tensor_encode(data, state) -> (wire_parts, state)`` runs before the
+node-axis exchange, ``tensor_decode(wire_parts) -> data`` after it.
+Every wire part keeps the leading axes of ``data``; a per-row part
+(``ef-int8``'s scale) drops only the last one.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.core._tensor import stable_partition_order
 
 # Wire-format constants of the zero-run byte codec: a u32 raw-length
 # header, then (u32 literal_len, u32 zero_len, literal bytes) records.
@@ -33,10 +37,13 @@ class Codec:
     lossless:  byte-exact round trip — the byte-identity harnesses run
                with these enabled; lossy codecs are rejected by the
                host write path (its payloads are raw bytes).
-    stateful:  carries residual state through the round loop.
+    stateful:  carries residual state through the round loop
+               (``state`` argument of :meth:`tensor_encode`).
 
     The numpy hooks (:meth:`encode_bytes` / :meth:`decode_bytes`) move
-    real bytes; the tensor hooks of the reference are not ported yet.
+    real bytes on the host; the tensor hooks (:meth:`tensor_encode` /
+    :meth:`tensor_decode`) transform the static-shape payload buckets
+    around the node-axis exchange.
     """
 
     name: str = "abstract"
@@ -53,6 +60,20 @@ class Codec:
         raise NotImplementedError
 
     def decode_bytes(self, wire: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    # ---- tensor side: static-shape window transform ------------------
+    def init_state(self, shape, dtype, device=None):
+        """Residual state carried through the round loop (stateless
+        codecs carry the empty tuple)."""
+        return ()
+
+    def tensor_encode(self, data: torch.Tensor, state):
+        """``data [..., cap] -> (wire_parts tuple, new_state)``."""
+        raise NotImplementedError
+
+    def tensor_decode(self, parts) -> torch.Tensor:
+        """Inverse of :meth:`tensor_encode`'s wire tuple."""
         raise NotImplementedError
 
     # ---- modeling ----------------------------------------------------
@@ -77,6 +98,12 @@ class IdentityCodec(Codec):
     def decode_bytes(self, wire):
         return np.asarray(wire, np.uint8)
 
+    def tensor_encode(self, data, state):
+        return (data,), state
+
+    def tensor_decode(self, parts):
+        (data,) = parts
+        return data
 
 
 class RleCodec(Codec):
@@ -89,9 +116,12 @@ class RleCodec(Codec):
     inside literals, so incompressible payloads pay only the constant
     header + one record (never a blow-up proportional to content).
 
-    On the device the codec is the zero-SKIPPING form of the same codec
-    (``(values, positions)`` at bucket capacity, hence a static wire
-    width of 2 elements per element); that half is not ported yet.
+    On the device the codec is the zero-SKIPPING form of the same codec:
+    per row the nonzero elements are compacted to the front with their
+    positions (``(values, positions)``, both at bucket capacity, hence a
+    static wire width of 2 elements per element). "Nonzero" is
+    ``data != 0`` in the payload's type, so a float -0.0 is skipped and
+    a NaN is kept. The transform is exact for every dtype.
     """
 
     name = "rle"
@@ -139,6 +169,29 @@ class RleCodec(Codec):
             pos += nlit + nzero
         return out
 
+    def tensor_encode(self, data, state):
+        nz = data != 0
+        # a stable partition on zero-ness compacts the nonzeros to the
+        # front in position order (the reference's stable argsort)
+        order = stable_partition_order(nz)
+        live = nz.gather(-1, order)
+        vals = torch.where(live, data.gather(-1, order),
+                           torch.zeros((), dtype=data.dtype,
+                                       device=data.device))
+        pos = torch.where(live, order, -1).to(torch.int32)
+        return (vals, pos), state
+
+    def tensor_decode(self, parts):
+        vals, pos = parts
+        cap = vals.shape[-1]
+        v2 = vals.reshape(-1, cap)
+        idx = pos.reshape(-1, cap).to(torch.int64)
+        idx = torch.where(idx >= 0, idx, cap)        # invalid -> pad slot
+        out = torch.zeros((v2.shape[0], cap + 1), dtype=vals.dtype,
+                          device=vals.device)
+        out.scatter_(1, idx, v2)
+        return out[:, :cap].reshape(vals.shape)
+
     def modeled_ratio(self, zero_fraction, total_bytes):
         total = max(float(total_bytes), 1.0)
         zf = min(max(float(zero_fraction), 0.0), 1.0)
@@ -147,13 +200,32 @@ class RleCodec(Codec):
         return max(total / wire, 1e-9)
 
 
+def int8_encode(x: torch.Tensor):
+    """Symmetric int8 quantization over the LAST axis: per-row scale
+    ``max|x| / 127`` (at least 1e-30 / 127), round half to even, clip to
+    +-127. Returns ``(q int8, scale float32)`` with ``scale`` shaped
+    like ``x`` minus its last axis. Float32 arithmetic throughout, as in
+    the reference."""
+    x = x.to(torch.float32)
+    scale = x.abs().amax(dim=-1).clamp(min=1e-30) / 127.0
+    q = torch.round(x / scale.unsqueeze(-1)).clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def int8_decode(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale.unsqueeze(-1)
+
+
 class EfInt8Codec(Codec):
     """Error-feedback int8 for float payloads (lossy).
 
     Each round's send is quantized to int8 with a per-destination-row
-    scale and the quantization error is fed back into the next round's
-    send (EF-SGD). Only its registry entry and modeling hooks are
-    ported; its tensor half waits with the other codecs.
+    scale; the quantization error ``x - decode(encode(x))`` is the
+    codec's STATE, added to the next round's send before quantizing
+    (EF-SGD). The round engine carries that residual through its loop in
+    round order at every ring depth. For a write, element-wise the file
+    sees ``x + r_t - r_{t+1}``: bounded by about twice one round's
+    quantization step.
     """
 
     name = "ef-int8"
@@ -169,6 +241,25 @@ class EfInt8Codec(Codec):
             "raw bytes — use a lossless codec ('identity', 'rle')")
 
     decode_bytes = encode_bytes
+
+    def init_state(self, shape, dtype, device=None):
+        if not dtype.is_floating_point:
+            raise TypeError(
+                f"slow_hop_codec='ef-int8' quantizes float payloads; "
+                f"got dtype {dtype}")
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    def tensor_encode(self, data, state):
+        x = data.to(torch.float32)
+        if not isinstance(state, tuple):   # residual rides along
+            x = x + state
+        q, scale = int8_encode(x)
+        new_state = (state if isinstance(state, tuple)
+                     else x - int8_decode(q, scale))
+        return (q, scale), new_state
+
+    def tensor_decode(self, parts):
+        return int8_decode(*parts)
 
     def modeled_ratio(self, zero_fraction, total_bytes):
         return 4.0      # f32 -> int8 (+ one scale per row, amortized)

@@ -1,5 +1,5 @@
-"""Round-scheduled bounded-buffer exchange engine, write direction (port
-of ``repro.core.rounds``).
+"""Round-scheduled bounded-buffer exchange engine (port of
+``repro.core.rounds``).
 
 Aggregator ``g`` owns the contiguous file domain
 ``[g * domain_len, (g+1) * domain_len)``; :class:`RoundScheduler`
@@ -39,8 +39,15 @@ exchanges rounds 0..k-2, the steady state exchanges round t while
 draining round t-(k-1), the epilogue drains the rest — so every round
 passes through the identical drain exactly once, in order.
 
-Out of this slice: the slow-hop codec (a plan with ``slow_hop_codec``
-raises ``NotImplementedError``) and the read direction.
+The slow-hop codec (:func:`_codec_hooks`) wraps only the node-axis
+hop: each exchange encodes its payload buckets before the transpose
+and the drain decodes them; ``ef-int8``'s residual is threaded through
+the round loop in round order at every depth.
+
+The read (:func:`exchange_rounds_read`) runs the other way: per round
+every aggregator's ``cb`` window is encoded, "broadcast" (on one device
+the ``[n_dest, cb]`` windows are simply computed once) and decoded, and
+every rank gathers the elements of its requests that fall in it.
 """
 from __future__ import annotations
 
@@ -51,20 +58,48 @@ import torch
 from repro_torch.core import coalesce as co
 from repro_torch.core import codec as codec_mod
 from repro_torch.core import placement as placement_mod
-from repro_torch.core._tensor import stable_partition_order
+from repro_torch.core._tensor import repeat_index, stable_partition_order
 from repro_torch.core.exchange import (bucket_by_dest, flatten_buckets,
                                        repack_sorted, sort_with)
 from repro_torch.core.plan import RoundScheduler  # noqa: F401
 from repro_torch.core.requests import PAD_OFFSET, RequestList, split_at_stripes
 
-CODEC_TODO = ("slow-hop codecs are not ported yet (ROADMAP queue 1, "
-              "'Codecs and the codec kernels')")
 
+def _codec_hooks(slow_hop_codec: str | None, dtype, state_shape, device,
+                 fused: bool = False):
+    """(encode, decode, state0) for the slow-hop wire transform.
 
-def _require_no_codec(slow_hop_codec) -> None:
-    if slow_hop_codec is not None:
-        raise NotImplementedError(
-            f"slow_hop_codec={slow_hop_codec!r}: {CODEC_TODO}")
+    ``encode(data, state) -> (wire_parts, state)`` runs inside the
+    ``exchange`` closure BEFORE the node-axis transpose;
+    ``decode(wire_parts) -> data`` runs inside the drain (and the read
+    fetch). ``state0`` is the codec's residual (the empty tuple for
+    stateless codecs). A lossy codec on a non-float payload raises
+    ``TypeError`` here, before any round runs.
+
+    ``fused`` (``IOPlan.kernel_fusion == "fused_round"``) swaps the rle
+    codec's stable-partition compaction for the ``zero_skip_encode``
+    kernel and its staged decode scatter for ``zero_skip_decode``
+    (``kernels.ops.rle_zero_skip_encode/decode``): the same wire and
+    window, byte for byte.
+    """
+    if slow_hop_codec is None:
+        return (lambda data, st: ((data,), st),
+                lambda parts: parts[0], ())
+    c = codec_mod.get_codec(slow_hop_codec)
+    if not c.lossless and not dtype.is_floating_point:
+        raise TypeError(
+            f"slow_hop_codec={c.name!r} is lossy (float payloads only) "
+            f"but the payload dtype is {dtype}")
+    state0 = (c.init_state(state_shape, dtype, device) if c.stateful
+              else ())
+    if fused and c.name == "rle":
+        from repro_torch.kernels import ops as kops
+
+        def enc(data, st):
+            return kops.rle_zero_skip_encode(data), st
+
+        return enc, kops.rle_zero_skip_decode, state0
+    return c.tensor_encode, c.tensor_decode, state0
 
 
 def _placement_hooks(placement, n_dest: int, dl: int, device):
@@ -119,27 +154,39 @@ def _lowest(dtype) -> float | int:
 def _a2a(x: torch.Tensor) -> torch.Tensor:
     """``all_to_all`` over the node axis: ``[N, G, n_dest, ...]`` sent
     buckets become ``[n_dest, G, N_src, ...]`` received buckets (bucket d
-    of node n lands at node d, from source n)."""
+    of node n lands at node d, from source n). A per-row wire part
+    (``[N, G, n_dest]``, no capacity axis) moves the same way."""
     return x.transpose(0, 2).contiguous()
 
 
-def _make_drain(base0: torch.Tensor, cb: int, dtype, fused: bool):
-    """Drain closure: merge one round's received buckets into the domain
-    buffer (flatten → sort → pack window and mask → masked-max merge
-    over the receive streams → accumulate at ``t * cb``).
+def _send(parts, n_nodes: int, group: int):
+    """Each of the sender-major ``[N * G, n_dest, ...]`` parts through
+    :func:`_a2a`."""
+    return tuple(_a2a(x.reshape(n_nodes, group, *x.shape[1:]))
+                 for x in parts)
 
-    ``rx`` is ``(offsets, lengths, counts, data)`` shaped
+
+def _make_drain(base0: torch.Tensor, cb: int, dtype, fused: bool, decode):
+    """Drain closure: merge one round's received buckets into the domain
+    buffer (decode the wire → flatten → sort → pack window and mask →
+    masked-max merge over the receive streams → accumulate at
+    ``t * cb``).
+
+    ``rx`` is ``(offsets, lengths, counts, *wire_parts)`` shaped
     ``[n_slots, X, n_src, ...]``: X receive streams per slot (the
     ranks of a node for two-phase, the local aggregators for TAM)
-    merged with the reference's masked ``pmax``. ``fused``
-    (``IOPlan.kernel_fusion == "fused_round"``) runs sort + dual pack as
-    one ``fused_sort_pack`` call over all ``n_slots * X`` windows; the
-    unfused path is the stable argsort plus two scatter packs.
+    merged with the reference's masked ``pmax``. ``decode`` inverts the
+    slow-hop codec's encode (:func:`_codec_hooks`). ``fused`` (``IOPlan.kernel_fusion == "fused_round"``)
+    runs sort + dual pack as one ``fused_sort_pack`` call over all
+    ``n_slots * X`` windows; the unfused path is the stable argsort plus
+    two scatter packs.
     """
     low = _lowest(dtype)
 
     def drain(t, buf, rx):
-        merged, starts_m, data_flat = flatten_buckets(*rx)
+        data = decode(rx[3:]).to(dtype)
+        rx = rx[:3]                  # frees the decoded wire parts
+        merged, starts_m, data_flat = flatten_buckets(*rx, data)
         base = (base0 + t * cb).unsqueeze(-1).expand(merged.count.shape)
         if fused:
             from repro_torch.kernels import ops as kops
@@ -162,15 +209,18 @@ def _make_drain(base0: torch.Tensor, cb: int, dtype, fused: bool):
 
 
 def _run_rounds(n_rounds: int, buf: torch.Tensor, exchange, drain,
-                depth: int):
+                depth: int, codec_state=()):
     """Drive the round loop: serial (depth 1) or a depth-k window ring.
 
-    ``exchange(t) -> (rx, ex_stats)`` produces round t's received
-    buckets; ``drain(t, buf, rx) -> (buf, dr_stats)`` merges them into
-    the domain buffer. Stats tuples are summed elementwise over rounds.
-    Ring schedule (depth k, clamped to the round count): the prologue
-    exchanges rounds 0..k-2; iteration t exchanges round t while
-    draining round t-(k-1); the epilogue drains the remaining k-1.
+    ``exchange(t, cstate) -> (rx, ex_stats, cstate)`` produces round t's
+    received buckets and the advanced codec state (the slow-hop codec's
+    residual, the empty tuple when stateless); ``drain(t, buf, rx) ->
+    (buf, dr_stats)`` merges them into the domain buffer. Stats tuples
+    are summed elementwise over rounds. Ring schedule (depth k, clamped
+    to the round count): the prologue exchanges rounds 0..k-2; iteration
+    t exchanges round t while draining round t-(k-1); the epilogue
+    drains the remaining k-1. Exchanges run in round order, so error
+    feedback sees rounds 0, 1, 2, ... at every depth.
     """
     ex_acc = dr_acc = None
 
@@ -180,8 +230,9 @@ def _run_rounds(n_rounds: int, buf: torch.Tensor, exchange, drain,
 
     d = max(1, min(depth, n_rounds))
     ring = []
+    cst = codec_state
     for t in range(n_rounds):
-        rx, ex = exchange(t)
+        rx, ex, cst = exchange(t, cst)
         ex_acc = add(ex_acc, ex)
         ring.append(rx)
         if len(ring) == d:
@@ -208,8 +259,10 @@ def exchange_rounds_write(sched: RoundScheduler, dims: tuple[int, int, int],
     Returns ``(file [n_dest, domain_len] in domain order, stats)``:
     per-rank drop counts ``[P]`` and ``requests_at_ga [n_dest]``
     (summed over each node's ranks, in domain order).
+    ``slow_hop_codec`` encodes each round's payload buckets around the
+    node-axis transpose; with ``kernel_fusion="fused_round"`` and
+    ``"rle"`` the zero-skip kernels encode and decode the wire.
     """
-    _require_no_codec(slow_hop_codec)
     fused = kernel_fusion == "fused_round"
     n_nodes, n_lagg, n_lmem = dims
     n_dest, cb, dl = sched.n_aggregators, sched.cb, sched.domain_len
@@ -226,23 +279,29 @@ def exchange_rounds_write(sched: RoundScheduler, dims: tuple[int, int, int],
     round_req_cap = min(split.capacity, cb)
     round_data_cap = min(data_cap, cb)
     group = n_lagg * n_lmem
+    enc, dec, cstate0 = _codec_hooks(
+        slow_hop_codec, data.dtype, (data.shape[0], n_dest, round_data_cap),
+        data.device, fused=fused)
 
-    def exchange(t):
+    def exchange(t, cst):
         act_r, act_starts, act_dest = _compact_active(
             split, s_starts, dest, live & (window == t))
         act_data = repack_sorted(act_r, act_starts, data, data_cap)
         b = bucket_by_dest(act_r, co.request_starts(act_r), act_data,
                            act_dest, n_dest, round_req_cap, round_data_cap)
         del act_data
-        rx = tuple(_a2a(x.reshape(n_nodes, group, *x.shape[1:]))
-                   for x in (b.offsets, b.lengths, b.counts, b.data))
-        return rx, (b.dropped_requests, b.dropped_elems)
+        meta = (b.offsets, b.lengths, b.counts)
+        stats = (b.dropped_requests, b.dropped_elems)
+        wire, cst = enc(b.data, cst)
+        del b                        # the payload buckets are encoded
+        rx = _send(meta, n_nodes, group) + _send(wire, n_nodes, group)
+        return rx, stats, cst
 
-    drain = _make_drain(base0, cb, data.dtype, fused)
+    drain = _make_drain(base0, cb, data.dtype, fused, dec)
     buf = torch.zeros((n_dest, dl), dtype=data.dtype, device=data.device)
     buf, (drop_r, drop_e), (reqs_rx,) = _run_rounds(
         sched.n_rounds, buf, exchange, drain,
-        _effective_depth(pipeline, depth))
+        _effective_depth(pipeline, depth), codec_state=cstate0)
     return unpermute(buf), {
         "dropped_requests": drop_r,
         "dropped_elems": drop_e,
@@ -272,9 +331,10 @@ def exchange_rounds_write_tam(sched: RoundScheduler,
     Returns ``(file [n_dest, domain_len], stats)``: ``*_rank`` drop
     stats per rank ``[P]``; ``*_agg`` drops and the before/after
     coalesce counts per group ``[N * A]`` (computed once per group, not
-    replicated over lmem); ``requests_at_ga [n_dest]``.
+    replicated over lmem); ``requests_at_ga [n_dest]``. The slow-hop
+    codec wraps only stage 2's node-axis hop, as in
+    :func:`exchange_rounds_write`; the intra-node gather stays raw.
     """
-    _require_no_codec(slow_hop_codec)
     fused = kernel_fusion == "fused_round"
     n_nodes, n_lagg, n_lmem = dims
     n_groups = n_nodes * n_lagg
@@ -294,8 +354,11 @@ def exchange_rounds_write_tam(sched: RoundScheduler,
                                                  data.device)
     idx = torch.arange(split.capacity, device=data.device)
     m_cap = n_lmem * rdcap
+    enc, dec, cstate0 = _codec_hooks(
+        slow_hop_codec, data.dtype, (n_groups, n_dest, min(m_cap, cb)),
+        data.device, fused=fused)
 
-    def exchange(t):
+    def exchange(t, cst):
         # ---- stage 1: window-bounded intra-node aggregation ---------
         act_r, act_starts, _ = _compact_active(split, s_starts, dest0,
                                                live & (window == t))
@@ -336,17 +399,18 @@ def exchange_rounds_write_tam(sched: RoundScheduler,
         b = bucket_by_dest(agg, co.request_starts(agg), packed, dest,
                            n_dest, min(agg.capacity, cb), min(m_cap, cb))
         del packed
-        rx = tuple(_a2a(x.reshape(n_nodes, n_lagg, *x.shape[1:]))
-                   for x in (b.offsets, b.lengths, b.counts, b.data))
+        wire, cst = enc(b.data, cst)
+        rx = (_send((b.offsets, b.lengths, b.counts), n_nodes, n_lagg)
+              + _send(wire, n_nodes, n_lagg))
         return rx, (drop_rank_r, drop_rank_e,
                     b.dropped_requests + drop_agg_r, b.dropped_elems,
-                    merged.count, agg.count)
+                    merged.count, agg.count), cst
 
-    drain = _make_drain(base0, cb, data.dtype, fused)
+    drain = _make_drain(base0, cb, data.dtype, fused, dec)
     buf = torch.zeros((n_dest, dl), dtype=data.dtype, device=data.device)
     buf, ex_acc, (reqs_rx,) = _run_rounds(
         sched.n_rounds, buf, exchange, drain,
-        _effective_depth(pipeline, depth))
+        _effective_depth(pipeline, depth), codec_state=cstate0)
     (drop_rank_r, drop_rank_e, drop_agg_r, drop_agg_e,
      n_before, n_after) = ex_acc
     return unpermute(buf), {
@@ -358,6 +422,88 @@ def exchange_rounds_write_tam(sched: RoundScheduler,
         "requests_after_coalesce": n_after,
         "requests_at_ga": unpermute(reqs_rx.sum(dim=1, dtype=torch.int32)),
     }
+
+
+def exchange_rounds_read(sched: RoundScheduler, r: RequestList,
+                         starts: torch.Tensor, file_shard: torch.Tensor,
+                         data_cap: int, pipeline: bool = False,
+                         depth: int | None = None,
+                         slow_hop_codec: str | None = None,
+                         placement=None,
+                         kernel_fusion: str | None = None) -> torch.Tensor:
+    """Round loop of the collective read over all ranks.
+
+    r/starts: every rank's requests ``[P, cap]`` and the start of each
+    request's payload; file_shard: the file as ``[n_dest, domain_len]``
+    in domain order. Returns the payloads ``[P, data_cap]`` (zero past
+    each rank's total length).
+
+    Per round the aggregators broadcast one ``cb`` window each and every
+    rank gathers the elements of its requests that fall in it. On one
+    device the broadcast (the reference's ``all_gather`` over ``node``)
+    is the identity: the ``[n_dest, cb]`` windows are computed once for
+    all ranks. ``slow_hop_codec`` encodes those windows as rows and
+    decodes them, residual-free (a broadcast repeats nothing, so
+    ``ef-int8`` is plain per-window quantization here); with
+    ``kernel_fusion="fused_round"`` and ``"rle"`` the zero-skip kernels
+    do it. ``placement`` permutes which slot serves each domain: slot
+    ``perm[g]`` gets domain g's shard (the reference's up-front
+    ``ppermute``, here indexing) and ranks index the windows through the
+    permutation, so the payloads are the same for every placement. The
+    depth-k ring keeps the reference's prologue, steady state and
+    epilogue: window t is fetched while the oldest carried window is
+    placed.
+    """
+    n_dest, cb, dl = sched.n_aggregators, sched.cb, sched.domain_len
+    dev = file_shard.device
+    if not placement_mod.is_identity(placement):
+        perm = placement_mod.validate_placement(placement, n_dest)
+        inv = placement_mod.inverse_placement(perm)
+        file_shard = file_shard[torch.tensor(inv, dtype=torch.int64,
+                                             device=dev)]
+        slot_of = torch.tensor(perm, dtype=torch.int64, device=dev)
+    else:
+        slot_of = None
+    lengths = r.lengths.to(torch.int64)
+    eidx = torch.arange(data_cap, device=dev, dtype=torch.int64)
+    req_of = repeat_index(lengths, data_cap)
+    fpos = (r.offsets.to(torch.int64).gather(-1, req_of)
+            + (eidx - starts.to(torch.int64).gather(-1, req_of)))
+    del req_of
+    live = eidx < lengths.sum(dim=-1, keepdim=True)
+    fpos = torch.where(live, fpos, 0)
+    dest, wloc = fpos // dl, fpos % dl
+    del fpos
+    # out-of-range positions clamp, as the reference's gather does
+    slot = (dest if slot_of is None
+            else slot_of[dest.clamp(0, n_dest - 1)])
+    wround = wloc // cb
+    src = slot * cb + (wloc - wround * cb)
+    del dest, wloc, slot
+    src.clamp_(0, n_dest * cb - 1)
+
+    enc, dec, _ = _codec_hooks(slow_hop_codec, file_shard.dtype, (cb,),
+                               dev, fused=kernel_fusion == "fused_round")
+
+    def fetch(t):
+        win = file_shard[:, t * cb:(t + 1) * cb].contiguous()
+        parts, _ = enc(win, ())                 # no residual to carry
+        return dec(parts).to(file_shard.dtype).reshape(-1)
+
+    def scatter(t, out, allw):
+        active = live & (wround == t)
+        return torch.where(active, allw[src], out)
+
+    out = torch.zeros((r.offsets.shape[0], data_cap),
+                      dtype=file_shard.dtype, device=dev)
+    d = max(1, min(_effective_depth(pipeline, depth), sched.n_rounds))
+    ring = [fetch(i) for i in range(d - 1)]          # prologue
+    for t in range(d - 1, sched.n_rounds):
+        ring.append(fetch(t))                        # broadcast window t …
+        out = scatter(t - (d - 1), out, ring.pop(0))  # … place the oldest
+    for j, allw in enumerate(ring):                  # epilogue
+        out = scatter(sched.n_rounds - (d - 1) + j, out, allw)
+    return out
 
 
 def peak_aggregator_buffer_elems(data_cap: int, n_nodes: int,

@@ -16,6 +16,10 @@ order of ``P((node, lagg, lmem))`` on dim 0.
 * ``method="tam"`` — both aggregation layers run inside the window loop
   (``rounds.exchange_rounds_write_tam``), once per ``(node, lagg)``
   group.
+* ``direction="read"`` — aggregators broadcast one cb window per round
+  and every rank gathers its own elements
+  (``rounds.exchange_rounds_read``); TAM reads run the same schedule
+  (``IOPlan.tam_read_fallback``).
 
 The executor returns what the reference's does: the file as
 ``[n_aggregators, domain_len]`` and a stats dict of int32 tensors
@@ -24,9 +28,9 @@ TAM, ``requests_before_coalesce`` / ``requests_after_coalesce``), equal
 to the reference's values — including its division of the
 lmem-replicated TAM counts by the lmem size.
 
-Entry points run on the card unless ``device="cpu"`` is passed; without
-a card they raise. Out of this slice: the read direction and slow-hop
-codecs (both raise ``NotImplementedError``).
+The plan's slow-hop codec wraps the node-axis hop of every schedule
+and direction (``rounds._codec_hooks``). Entry points run on the card
+unless ``device="cpu"`` is passed; without a card they raise.
 """
 from __future__ import annotations
 
@@ -39,9 +43,6 @@ from repro_torch.core import coalesce as co
 from repro_torch.core import rounds
 from repro_torch.core.plan import IOPlan, compile_plan
 from repro_torch.core.requests import RequestList, mask_invalid
-
-READ_TODO = ("the read direction is not ported yet (ROADMAP queue 1, "
-             "'Read direction')")
 
 
 class RankMesh(NamedTuple):
@@ -119,12 +120,24 @@ def _write(plan: IOPlan, dims, use_kernels: bool, offsets, lengths, count,
     return shard, stats
 
 
+def _read(plan: IOPlan, n_ranks: int, offsets, lengths, count,
+          file_shard):
+    r = _as_requests(offsets, lengths, count, n_ranks)
+    return rounds.exchange_rounds_read(
+        plan.scheduler(), r, co.request_starts(r),
+        file_shard.reshape(plan.n_aggregators, -1), plan.data_cap,
+        depth=plan.pipeline_depth, slow_hop_codec=plan.slow_hop_codec,
+        placement=plan.placement, kernel_fusion=plan.kernel_fusion)
+
+
 def make_spmd_executor(mesh: RankMesh, plan: IOPlan,
                        use_kernels: bool = False, device=None):
     """Bind an :class:`IOPlan` to a rank mesh and a device.
 
     Write plans return ``fn(offsets, lengths, count, data) -> (file
-    [n_aggregators, domain_len], stats)``. Inputs are moved to the
+    [n_aggregators, domain_len], stats)``; read plans return
+    ``fn(offsets, lengths, count, file_shard [n_aggregators,
+    domain_len]) -> payloads [P, data_cap]``. Inputs are moved to the
     executor's device (the card unless ``device="cpu"``). The mesh's
     node-axis size must match the plan's aggregator count.
     """
@@ -133,9 +146,6 @@ def make_spmd_executor(mesh: RankMesh, plan: IOPlan,
         raise ValueError(
             f"plan compiled for {plan.n_aggregators} aggregators but mesh "
             f"axis {node!r} has size {mesh.shape[node]}")
-    if plan.direction == "read":
-        raise NotImplementedError(READ_TODO)
-    rounds._require_no_codec(plan.slow_hop_codec)
     dev = resolve_device(device)
     dims = mesh.dims
 
@@ -144,6 +154,8 @@ def make_spmd_executor(mesh: RankMesh, plan: IOPlan,
                 for x in (offsets, lengths, count, data)]
         args[:3] = [a.to(torch.int32) for a in args[:3]]
         with torch.no_grad():
+            if plan.direction == "read":
+                return _read(plan, mesh.size, *args)
             return _write(plan, dims, use_kernels, *args)
 
     run.plan = plan

@@ -36,3 +36,20 @@ def make_tam_write(mesh: RankMesh, layout: FileLayout, cfg: IOConfig,
                     method="tam")
     return make_spmd_executor(mesh, plan, use_kernels=use_kernels,
                               device=device)
+
+
+def make_tam_read(mesh: RankMesh, layout: FileLayout, cfg: IOConfig,
+                  device=None):
+    """TAM collective read — an EXPLICIT alias of the two-phase read
+    schedule, as in the reference: every rank takes part in every hop,
+    so the slow-axis transfer is the same one-window-per-round broadcast
+    either way. The plan records this as ``tam_read_fallback``, asserted
+    here. Same inputs and output as
+    :func:`repro_torch.core.twophase.make_twophase_read`."""
+    node = cfg.axis_names[0]
+    plan = plan_for(layout, cfg, mesh.shape[node], mesh.size,
+                    method="tam", direction="read")
+    assert plan.tam_read_fallback, (
+        "TAM read compiles to the two-phase window broadcast; the plan "
+        "must record the fallback explicitly")
+    return make_spmd_executor(mesh, plan, device=device)

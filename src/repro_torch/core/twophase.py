@@ -44,6 +44,22 @@ def make_twophase_write(mesh: RankMesh, layout: FileLayout, cfg: IOConfig,
     return make_spmd_executor(mesh, plan, device=device)
 
 
+def make_twophase_read(mesh: RankMesh, layout: FileLayout, cfg: IOConfig,
+                       device=None):
+    """Build the baseline collective read: aggregators broadcast their
+    file domains one ``cb`` window per round (the whole domain when
+    ``cb_buffer_size`` is None), every rank gathers its own requests.
+
+    Inputs: offsets/lengths ``[P, req_cap]``, count ``[P]``, the file
+    ``[n_nodes, domain_len]``. Output: payloads ``[P, data_cap]``. Runs
+    on the card unless ``device="cpu"``.
+    """
+    node = cfg.axis_names[0]
+    plan = plan_for(layout, cfg, mesh.shape[node], mesh.size,
+                    direction="read")
+    return make_spmd_executor(mesh, plan, device=device)
+
+
 def write_reference(layout: FileLayout, offsets, lengths, counts, data):
     """Host-side oracle: scatter every rank's payload into a dense file
     (numpy, independent of the executor)."""

@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sort.cu", "coalesce_kernel.cu", "fused_round.cu")
+SOURCES = ("sort.cu", "coalesce_kernel.cu", "fused_round.cu",
+           "zero_skip.cu")
 HEADERS = ("common.cuh", "bitonic.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,6 +38,8 @@ _SIGNATURES = {
     "repro_coalesce": (_P, _P, _P, _P, _P, _I, _I, _P),
     "repro_fused_sort_pack": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _LL, _LL, _I, ctypes.c_ulonglong, _P),
+    "repro_zero_skip_encode": (_P, _P, _P, _I, _I, _I, _P),
+    "repro_zero_skip_decode": (_P, _P, _P, _I, _I, _P),
 }
 
 

@@ -1,5 +1,6 @@
-"""The fused per-round drain: the port of
-``repro.kernels.fused_round.fused_sort_pack``.
+"""The fused per-round kernels: the port of
+``repro.kernels.fused_round`` (``fused_sort_pack``,
+``zero_skip_encode``, ``zero_skip_decode``).
 
 Each round every aggregator drains one cb window: sort the merged
 request list by offset, then pack the window payload AND its coverage
@@ -12,15 +13,22 @@ shared-memory bitonic sort into scratch, then a tile kernel over
 ``[B, out_len]`` windows. On a CPU tensor the wrapper runs the plain
 version, :func:`repro_torch.kernels.ref.fused_sort_pack_ref`.
 
-The codec kernels of the reference module (``zero_skip_encode`` /
-``zero_skip_decode``) are not ported yet.
+The rle codec's wire form on the slow hop is a zero-skip compaction of
+each payload row. The TPU kernels hold a whole row in VMEM; a row of
+131072 or 262144 4-byte elements does not fit a Hopper block's shared
+memory, so ``csrc/zero_skip.cu`` walks each row in tiles with a carried
+count (encode) and scatters each row after zeroing it (decode). Both
+take 4-byte payloads (int32, float32), the types the round engine
+gives them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import fused_sort_pack_ref
+from repro_torch.kernels.ref import (fused_sort_pack_ref,
+                                    zero_skip_decode_ref,
+                                    zero_skip_encode_ref)
 
 MAX_REQ_BLOCK = 32768
 TILE = 4096
@@ -91,3 +99,75 @@ def fused_sort_pack(offsets: torch.Tensor, lengths: torch.Tensor,
 
 
 fused_sort_pack.launches = 0
+
+ZERO_SKIP_DTYPES = (torch.int32, torch.float32)
+
+
+def _require_zero_skip_dtype(name, dtype):
+    if dtype not in ZERO_SKIP_DTYPES:
+        raise TypeError(f"{name} takes {ZERO_SKIP_DTYPES} on the card, "
+                        f"got {dtype}")
+
+
+def zero_skip_encode(data: torch.Tensor):
+    """Zero-skipping compaction of ``[rows, n]`` payload rows, n a power
+    of two. Returns ``(vals, pos)``: the nonzero values compacted to the
+    front in position order, their positions alongside (int32, -1 in the
+    padding, vals 0 there). CUDA tensors launch the kernel (counted in
+    ``zero_skip_encode.launches``); CPU tensors run
+    :func:`repro_torch.kernels.ref.zero_skip_encode_ref`."""
+    if data.dim() != 2:
+        raise ValueError("zero_skip_encode takes [rows, n] data")
+    rows, n = data.shape
+    if n & (n - 1):
+        raise ValueError(f"row length {n} must be a power of two")
+    if data.device.type == "cpu":
+        return zero_skip_encode_ref(data)
+    build.require_cuda("zero_skip_encode", data)
+    _require_zero_skip_dtype("zero_skip_encode", data.dtype)
+    vals = torch.empty_like(data)
+    pos = torch.empty(data.shape, dtype=torch.int32, device=data.device)
+    lib = build.load_library()
+    with torch.cuda.device(data.device):
+        rc = lib.repro_zero_skip_encode(
+            data.data_ptr(), vals.data_ptr(), pos.data_ptr(), rows, n,
+            int(data.dtype.is_floating_point), build.stream_of(data))
+    build.check(lib, "zero_skip_encode", rc)
+    zero_skip_encode.launches += 1
+    return vals, pos
+
+
+zero_skip_encode.launches = 0
+
+
+def zero_skip_decode(vals: torch.Tensor, pos: torch.Tensor):
+    """Expand zero-skip compacted ``[rows, n]`` rows (n a power of two,
+    ``pos == -1`` in the padding) back into dense rows, zeros where no
+    position lands. CUDA tensors launch the kernel (counted in
+    ``zero_skip_decode.launches``); CPU tensors run
+    :func:`repro_torch.kernels.ref.zero_skip_decode_ref`."""
+    if vals.dim() != 2:
+        raise ValueError("zero_skip_decode takes [rows, n] rows")
+    rows, n = vals.shape
+    if n & (n - 1):
+        raise ValueError(f"row length {n} must be a power of two")
+    if pos.shape != vals.shape:
+        raise ValueError(f"vals {tuple(vals.shape)} / pos "
+                         f"{tuple(pos.shape)} mismatch")
+    if vals.device.type == "cpu":
+        return zero_skip_decode_ref(vals, pos)
+    build.require_cuda("zero_skip_decode", vals, pos)
+    build.require_cuda("zero_skip_decode", pos, dtype=torch.int32)
+    _require_zero_skip_dtype("zero_skip_decode", vals.dtype)
+    out = torch.empty_like(vals)
+    lib = build.load_library()
+    with torch.cuda.device(vals.device):
+        rc = lib.repro_zero_skip_decode(
+            vals.data_ptr(), pos.data_ptr(), out.data_ptr(), rows, n,
+            build.stream_of(vals))
+    build.check(lib, "zero_skip_decode", rc)
+    zero_skip_decode.launches += 1
+    return out
+
+
+zero_skip_decode.launches = 0

@@ -119,3 +119,30 @@ def fused_drain_pack(r: RequestList, starts: torch.Tensor,
     shape = (*lead, out_len)
     return (win[:, :out_len].reshape(shape),
             mask[:, :out_len].reshape(shape))
+
+
+def rle_zero_skip_encode(data: torch.Tensor):
+    """Kernel-backed ``RleCodec.tensor_encode`` compaction
+    (``fused_round.zero_skip_encode``): pads rows to a power of two with
+    zeros, compacts, slices back. Returns ``(vals, pos)`` in the codec's
+    wire layout, with every leading axis of ``data`` kept."""
+    lead, cap = data.shape[:-1], data.shape[-1]
+    n = _next_pow2(cap)
+    vals, pos = fused_round.zero_skip_encode(
+        _pad_block(data.reshape(-1, cap), n, 0))
+    return (vals[:, :cap].reshape(*lead, cap),
+            pos[:, :cap].reshape(*lead, cap))
+
+
+def rle_zero_skip_decode(parts) -> torch.Tensor:
+    """Kernel-backed ``RleCodec.tensor_decode``
+    (``fused_round.zero_skip_decode``): pads the ``(vals, pos)`` rows to
+    a power of two (pos padding -1, the drop sentinel), scatters, slices
+    back to the window shape."""
+    vals, pos = parts
+    lead, cap = vals.shape[:-1], vals.shape[-1]
+    n = _next_pow2(cap)
+    out = fused_round.zero_skip_decode(
+        _pad_block(vals.reshape(-1, cap), n, 0),
+        _pad_block(pos.reshape(-1, cap), n, -1))
+    return out[:, :cap].reshape(*lead, cap)

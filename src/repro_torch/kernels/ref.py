@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.codec import get_codec
 from repro_torch.core.coalesce import pack_data
 from repro_torch.core.exchange import sort_with
 from repro_torch.core.requests import PAD_OFFSET, RequestList
@@ -81,3 +82,21 @@ def fused_sort_pack_ref(offsets: torch.Tensor, lengths: torch.Tensor,
     mask = pack_data(sorted_r, sorted_st, torch.ones_like(data), out_len,
                      base=base)
     return win, mask
+
+
+def zero_skip_encode_ref(data: torch.Tensor):
+    """Per ``[rows, n]`` row: the nonzeros (``data != 0`` in the row's
+    type) compacted to the front in position order, their positions
+    beside them, ``(0, -1)`` behind — the rle codec's stable-partition
+    compaction, the plain version of ``fused_round.zero_skip_encode``.
+    Returns ``(vals, pos int32)``."""
+    (vals, pos), _ = get_codec("rle").tensor_encode(data, ())
+    return vals, pos
+
+
+def zero_skip_decode_ref(vals: torch.Tensor, pos: torch.Tensor):
+    """Scatter ``(vals, pos)`` rows back into zeroed ``[rows, n]`` rows
+    through a ``[rows, n + 1]`` staging buffer whose last slot takes
+    ``pos == -1`` — the rle codec's decode, the plain version of
+    ``fused_round.zero_skip_decode``."""
+    return get_codec("rle").tensor_decode((vals, pos))

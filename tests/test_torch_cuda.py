@@ -119,6 +119,72 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         t_ck.coalesce(x.t().contiguous().t()[:, :32], x[:, :32])
 
 
+def _zero_skip_rows(rng, rows, n, dtype):
+    """About half zeros, an all-zero and a no-zero row; float rows also
+    hold -0.0 (a zero) and NaN (a nonzero)."""
+    x = rng.integers(-5, 6, size=(rows, n)) * (rng.random((rows, n)) < 0.5)
+    x = x.astype(np.float32 if dtype == torch.float32 else np.int32)
+    x[0] = 0
+    x[1] = np.where(x[1] == 0, 3, x[1])
+    if dtype == torch.float32 and rows > 2:
+        x = x * np.float32(0.75)
+        x[2, ::3] = np.float32(-0.0)
+        x[2, 1::7] = np.nan
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("rows,n", [(2, 1), (3, 8), (5, 100), (4, 4096),
+                                    (3, 5000), (16, 262144)])
+def test_cuda_zero_skip_equal_plain(cuda, dtype, rows, n):
+    """Both kernels equal their plain versions bit for bit, through the
+    ops wrappers that pad odd widths to a power of two."""
+    from repro_torch.kernels import ops as t_ops
+    x = _t(_zero_skip_rows(np.random.default_rng(n), rows, n, dtype)
+           ).to(cuda)
+    before = (t_fr.zero_skip_encode.launches,
+              t_fr.zero_skip_decode.launches)
+    vals, pos = t_ops.rle_zero_skip_encode(x)
+    out = t_ops.rle_zero_skip_decode((vals, pos))
+    assert (t_fr.zero_skip_encode.launches,
+            t_fr.zero_skip_decode.launches) == (before[0] + 1, before[1] + 1)
+    n2 = 1 << max(n - 1, 1).bit_length()
+    padded = torch.nn.functional.pad(x, (0, n2 - n))
+    wv, wp = t_ref.zero_skip_encode_ref(padded)
+    assert torch.equal(vals.view(torch.int32), wv[:, :n].view(torch.int32))
+    assert torch.equal(pos, wp[:, :n])
+    want = t_ref.zero_skip_decode_ref(wv, wp)[:, :n]
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_zero_skip_decode_of_scattered_positions(cuda):
+    """decode takes any order of positions, not only the encoder's."""
+    rng = np.random.default_rng(9)
+    n = 1024
+    pos = np.stack([rng.permutation(n) for _ in range(3)]).astype(np.int32)
+    pos[:, ::5] = -1
+    vals = rng.integers(1, 1 << 30, size=(3, n)).astype(np.int32)
+    v, p = _t(vals).to(cuda), _t(pos).to(cuda)
+    assert torch.equal(t_fr.zero_skip_decode(v, p),
+                       t_ref.zero_skip_decode_ref(v, p))
+
+
+@pytest.mark.cuda
+def test_cuda_zero_skip_rejects_other_dtypes(cuda):
+    for dtype in (torch.int64, torch.float16, torch.uint8):
+        x = torch.zeros((2, 64), dtype=dtype, device=cuda)
+        with pytest.raises(TypeError):
+            t_fr.zero_skip_encode(x)
+        with pytest.raises(TypeError):
+            t_fr.zero_skip_decode(x, torch.zeros((2, 64), dtype=torch.int32,
+                                                 device=cuda))
+    x = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        t_fr.zero_skip_decode(x, x.to(torch.int64))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["twophase", "tam"])
 def test_cuda_write_equals_cpu_write(cuda, method):
@@ -144,3 +210,52 @@ def test_cuda_write_equals_cpu_write(cuda, method):
             == write_reference(layout, O, L, C, D).tobytes())
     for k in s_cpu:
         assert torch.equal(s_gpu[k].cpu(), s_cpu[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["rle", "ef-int8"])
+@pytest.mark.parametrize("method", ["twophase", "tam"])
+def test_cuda_codec_write_and_read_equal_cpu(cuda, method, codec):
+    """A small BTIO write and read-back with a slow-hop codec: the card
+    equals the CPU (file, stats and payloads; within the 5e-2 band of
+    the reference's tests for the lossy float codec), and the fused rle
+    path launches both zero-skip kernels."""
+    from repro_torch.core import (IOConfig, RankMesh, contiguous_layout,
+                                  make_tam_read, make_tam_write,
+                                  make_twophase_read, make_twophase_write,
+                                  write_reference)
+    from repro_torch.io_patterns.generators import btio_write_pattern
+    O, L, C, D = btio_write_pattern(16, 64, 4, 8, seed=4)
+    D = D.copy()
+    D[:, ::2] = 0
+    if codec == "ef-int8":
+        D = D.astype(np.float32) / np.float32(1 << 20)
+    layout = contiguous_layout(4 * 64 * 64 * 8, 4)
+    ref = write_reference(layout, O, L, C, D)
+    cfg = IOConfig(req_cap=O.shape[1], data_cap=D.shape[1],
+                   coalesce_cap=64, cb_buffer_size=4096, pipeline=True,
+                   pipeline_depth=2, kernel_fusion="fused_round",
+                   slow_hop_codec=codec)
+    write = make_twophase_write if method == "twophase" else make_tam_write
+    read = make_twophase_read if method == "twophase" else make_tam_read
+    mesh = RankMesh(4, 1, 4)
+    before = (t_fr.zero_skip_encode.launches,
+              t_fr.zero_skip_decode.launches)
+    f_gpu, s_gpu = write(mesh, layout, cfg, device=cuda)(O, L, C, D)
+    p_gpu = read(mesh, layout, cfg, device=cuda)(O, L, C,
+                                                 torch.as_tensor(ref))
+    f_cpu, s_cpu = write(mesh, layout, cfg, device="cpu")(O, L, C, D)
+    p_cpu = read(mesh, layout, cfg, device="cpu")(O, L, C,
+                                                  torch.as_tensor(ref))
+    for k in s_cpu:
+        assert torch.equal(s_gpu[k].cpu(), s_cpu[k]), k
+    if codec == "rle":
+        assert torch.equal(f_gpu.cpu(), f_cpu)
+        assert torch.equal(p_gpu.cpu(), p_cpu)
+        assert f_cpu.numpy().reshape(-1).tobytes() == ref.tobytes()
+        assert t_fr.zero_skip_encode.launches > before[0]
+        assert t_fr.zero_skip_decode.launches > before[1]
+    else:
+        band = 5e-2 * np.abs(ref).max()
+        assert np.abs(f_gpu.cpu().numpy().reshape(-1) - ref).max() < band
+        assert (p_gpu.cpu() - p_cpu).abs().max().item() < band

@@ -30,7 +30,8 @@ PORT_FILES = sorted(PORT.rglob("*.py"))
 def test_port_has_python_and_cuda_sources():
     assert len(PORT_FILES) > 15
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
-        == ["coalesce_kernel.cu", "fused_round.cu", "sort.cu"]
+        == ["coalesce_kernel.cu", "fused_round.cu", "sort.cu",
+            "zero_skip.cu"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -43,7 +44,7 @@ def test_no_jax_or_reference_import(path):
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.core, repro_torch.kernels.ops, "
-            "repro_torch.io_patterns.generators; "
+            "repro_torch.kernels.ref, repro_torch.io_patterns.generators; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -56,7 +57,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
 
 def _entry_points():
     from repro_torch.core import (IOConfig, RankMesh, contiguous_layout,
-                                  make_collective_write, make_tam_write,
+                                  make_collective_write, make_tam_read,
+                                  make_tam_write, make_twophase_read,
                                   make_twophase_write, requests_from_numpy)
     mesh = RankMesh(2, 1, 2)
     layout = contiguous_layout(64, 2)
@@ -69,6 +71,9 @@ def _entry_points():
         "tam": lambda **kw: make_tam_write(mesh, layout, cfg, **kw),
         "collective": lambda **kw: make_collective_write(mesh, layout, cfg,
                                                          **kw),
+        "twophase_read": lambda **kw: make_twophase_read(mesh, layout, cfg,
+                                                         **kw),
+        "tam_read": lambda **kw: make_tam_read(mesh, layout, cfg, **kw),
         "requests": lambda **kw: requests_from_numpy(O, O, C, D, **kw),
     }
 

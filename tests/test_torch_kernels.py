@@ -294,14 +294,87 @@ def test_fused_sort_pack_rejects_bad_shapes(bad):
                              0, 4096 if bad == "cap" else 100)
 
 
+# ------------------------------------------------- zero_skip_encode/decode
+
+def _zero_skip_rows(rng, rows, n, dtype):
+    """Rows with about half zeros, plus an all-zero and a no-zero row;
+    float rows also hold -0.0 (a zero) and NaN (a nonzero)."""
+    x = rng.integers(-5, 6, size=(rows, n)) * (rng.random((rows, n)) < 0.5)
+    x = x.astype(dtype)
+    x[0] = 0
+    x[1] = np.where(x[1] == 0, 3, x[1])
+    if np.issubdtype(dtype, np.floating):
+        x = x * np.float32(0.75)
+        x[2, ::3] = np.float32(-0.0)
+        x[2, 1::7] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("rows,n", [(4, 8), (5, 64), (3, 1024)])
+def test_zero_skip_encode_decode_match_reference(dtype, rows, n):
+    """Exactly the Pallas kernels (interpret mode) and the reference
+    codec's stable-argsort encode and staged-scatter decode, bit for
+    bit (so -0.0 counts as zero and NaN payloads survive)."""
+    from repro.core.codec import get_codec as j_get_codec
+    x = _zero_skip_rows(np.random.default_rng(n + rows), rows, n, dtype)
+    tv, tp = (_np(a) for a in t_fr.zero_skip_encode(_t(x)))
+    jv, jp = (np.asarray(a) for a in j_fr.zero_skip_encode(
+        jnp.asarray(x), interpret=True))
+    (cv, cp), _ = j_get_codec("rle").jax_encode(jnp.asarray(x), ())
+    for want_v, want_p in ((jv, jp), (np.asarray(cv), np.asarray(cp))):
+        assert tv.dtype == want_v.dtype and tp.dtype == want_p.dtype
+        assert tv.tobytes() == want_v.tobytes()
+        np.testing.assert_array_equal(tp, want_p)
+    out = _np(t_fr.zero_skip_decode(_t(tv), _t(tp)))
+    jout = np.asarray(j_fr.zero_skip_decode(jnp.asarray(jv),
+                                            jnp.asarray(jp), interpret=True))
+    cout = np.asarray(j_get_codec("rle").jax_decode((cv, cp)))
+    assert out.tobytes() == jout.tobytes() == cout.tobytes()
+    # the round trip restores every nonzero and turns -0.0 into +0.0
+    np.testing.assert_array_equal(out, np.where(x == 0, 0, x).astype(dtype))
+
+
+@pytest.mark.parametrize("shape", [(37,), (3, 100), (2, 3, 5)])
+def test_ops_rle_zero_skip_pads_and_slices(shape):
+    """Odd widths pad to a power of two (pos padding -1) and come back
+    with every leading axis, equal to the reference's ops wrappers."""
+    x = np.random.default_rng(len(shape)).integers(
+        0, 3, size=shape).astype(np.int32)
+    tv, tp = t_ops.rle_zero_skip_encode(_t(x))
+    jv, jp = j_ops.rle_zero_skip_encode(jnp.asarray(x))
+    assert tuple(tv.shape) == tuple(tp.shape) == shape
+    np.testing.assert_array_equal(_np(tv), np.asarray(jv))
+    np.testing.assert_array_equal(_np(tp), np.asarray(jp))
+    out = t_ops.rle_zero_skip_decode((tv, tp))
+    np.testing.assert_array_equal(
+        _np(out), np.asarray(j_ops.rle_zero_skip_decode((jv, jp))))
+    np.testing.assert_array_equal(_np(out), x)
+
+
+@pytest.mark.parametrize("bad", ["width", "rank", "pos_shape"])
+def test_zero_skip_rejects_bad_shapes(bad):
+    x = torch.zeros((2, 48 if bad == "width" else 64), dtype=torch.int32)
+    if bad == "rank":
+        x = x.reshape(-1)
+    if bad != "pos_shape":
+        with pytest.raises(ValueError):
+            t_fr.zero_skip_encode(x)
+    pos = x[..., :32] if bad == "pos_shape" else x
+    with pytest.raises(ValueError):
+        t_fr.zero_skip_decode(x, pos)
+
+
 def test_cpu_path_launches_nothing():
     t_kernels.reset_launch_counts()
     x = torch.zeros((1, 64), dtype=torch.int32)
     t_sort.bitonic_sort(x, x, x)
     t_ck.coalesce(x, x)
     t_fr.fused_sort_pack(x, x, x, x, 0, 4096)
+    t_fr.zero_skip_decode(*t_fr.zero_skip_encode(x))
     assert t_kernels.launch_counts() == {
-        "bitonic_sort": 0, "coalesce": 0, "fused_sort_pack": 0}
+        "bitonic_sort": 0, "coalesce": 0, "fused_sort_pack": 0,
+        "zero_skip_encode": 0, "zero_skip_decode": 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path():
@@ -309,6 +382,8 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
     x = torch.zeros((1, 64), dtype=torch.int32, device="meta")
     for call in (lambda: t_sort.bitonic_sort(x, x, x),
                  lambda: t_ck.coalesce(x, x),
-                 lambda: t_fr.fused_sort_pack(x, x, x, x, 0, 4096)):
+                 lambda: t_fr.fused_sort_pack(x, x, x, x, 0, 4096),
+                 lambda: t_fr.zero_skip_encode(x),
+                 lambda: t_fr.zero_skip_decode(x, x)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
