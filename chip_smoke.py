@@ -5,24 +5,31 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes the
-main path gives it (exact equality: the write moves 4-byte words and
-does no arithmetic on them), checks small writes and reads with every
-slow-hop codec on the card against the CPU, then drives the main path
-on the BTIO deployment (16 nodes x 64 ranks, one global aggregator per
-node, a 512 MiB file, 32 rounds of 1 MiB windows) with
-``kernel_fusion="fused_round"``:
+main path gives it (exact equality for the I/O kernels, which move
+words and do no arithmetic on them; 5e-3 for f32 and 5e-2 for bf16
+attention), checks small writes and reads with every slow-hop codec on
+the card against the CPU, then drives the main paths:
 
-* the two-phase and the TAM collective write (``make_twophase_write``,
-  ``make_tam_write(use_kernels=True)``);
-* the same two writes with ``slow_hop_codec="rle"`` on a payload whose
+* on the BTIO deployment (16 nodes x 64 ranks, one global aggregator per
+  node, a 512 MiB file, 32 rounds of 1 MiB windows) with
+  ``kernel_fusion="fused_round"``: the two-phase and the TAM collective
+  write (``make_twophase_write``, ``make_tam_write(use_kernels=True)``);
+  the same two writes with ``slow_hop_codec="rle"`` on a payload whose
   8-element cells are half zero (a sparse checkpoint page), whose wire
-  the zero-skip kernels encode and decode;
-* the two-phase and the TAM collective read with ``"rle"``
-  (``make_twophase_read``, ``make_tam_read``), reading that file back.
+  the zero-skip kernels encode and decode; the two-phase and the TAM
+  collective read with ``"rle"`` (``make_twophase_read``,
+  ``make_tam_read``), reading that file back;
+* greedy serving of gemma2-9b at full width and depth (42 layers, bf16
+  weights from a seeded generator) through ``launch.serve.generate``
+  and the model's prefill and decode: batch 4 x 32 prompt tokens x 16
+  new tokens, and one 8192-token prompt followed by 16 decode steps,
+  every attention through the flash kernel; its logits are checked
+  against ``forward`` and against attention forced through the plain
+  version.
 
 Every phase prints one JSON line; any failed check raises, and the run
 exits non-zero. The line before the last lists every kernel with its
-launches on the main path, its time, its bound and the plain and library
+launches on the main paths, its time, its bound and the plain and library
 times; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
 non-zero and prints no result.
@@ -43,12 +50,19 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 REPS = 10                     # timed runs per kernel measurement
 FP32_OPS_PER_S = 67e12        # H100 SXM non-tensor float32 rate; no
                               # int32 row in the table, used for compares
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
+TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 tensor-core rate
+ATTN_TOL = {"bfloat16": 5e-2, "float32": 5e-3}   # test_flash_kernel.py's
+SERVE_REL_L2 = 5e-2           # bf16 logits, 42 layers: see phase_serve
+LONG_PROMPT = 8192            # crosses gemma2's 4096 window
 REPLACES = {
     "bitonic_sort": "src/repro/kernels/sort.py:72",
     "coalesce": "src/repro/kernels/coalesce_kernel.py:73",
     "fused_sort_pack": "src/repro/kernels/fused_round.py:64",
     "zero_skip_encode": "src/repro/kernels/fused_round.py:129",
     "zero_skip_decode": "src/repro/kernels/fused_round.py:172",
+    "pack": "src/repro/kernels/pack.py:56",
+    "flash_attention_fused": "src/repro/kernels/flash.py:92",
 }
 SOURCES = {
     "bitonic_sort": "src/repro_torch/kernels/csrc/sort.cu",
@@ -56,6 +70,8 @@ SOURCES = {
     "fused_sort_pack": "src/repro_torch/kernels/csrc/fused_round.cu",
     "zero_skip_encode": "src/repro_torch/kernels/csrc/zero_skip.cu",
     "zero_skip_decode": "src/repro_torch/kernels/csrc/zero_skip.cu",
+    "pack": "src/repro_torch/kernels/csrc/pack.cu",
+    "flash_attention_fused": "src/repro_torch/kernels/csrc/flash.cu",
 }
 TABLE = (   # every pallas_call of the reference, by def line
     ("fused_sort_pack", "src/repro/kernels/fused_round.py:64", "ported"),
@@ -63,8 +79,8 @@ TABLE = (   # every pallas_call of the reference, by def line
     ("coalesce", "src/repro/kernels/coalesce_kernel.py:73", "ported"),
     ("zero_skip_encode", "src/repro/kernels/fused_round.py:129", "ported"),
     ("zero_skip_decode", "src/repro/kernels/fused_round.py:172", "ported"),
-    ("pack", "src/repro/kernels/pack.py:56", "to_port"),
-    ("flash_attention_fused", "src/repro/kernels/flash.py:92", "to_port"),
+    ("pack", "src/repro/kernels/pack.py:56", "ported"),
+    ("flash_attention_fused", "src/repro/kernels/flash.py:92", "ported"),
 )
 
 
@@ -334,6 +350,186 @@ def phase_kernels(torch, dev, reps):
     return results
 
 
+def attention_work(torch, b, sq, hq, skv, causal, window, q_offset,
+                   kv_len):
+    """The work this call's masks leave: unmasked (query, key) pairs
+    summed over the batch and the query heads, and the number of keys
+    some query sees (the keys the function must read)."""
+    s = torch.arange(sq, dtype=torch.int64) + q_offset
+    hi = torch.full_like(s, min(skv, skv if kv_len is None else kv_len))
+    if causal:
+        hi = torch.minimum(hi, s + 1)
+    lo = torch.zeros_like(s)
+    if window is not None:
+        lo = (s - window + 1).clamp(min=0)
+    live = hi > lo
+    keys = int(hi[live].max() - lo[live].min()) if bool(live.any()) else 0
+    return b * hq * int((hi - lo).clamp(min=0).sum()), keys
+
+
+def close_err(got, want, tol: float, what: str) -> float:
+    """Max |got - want|; fails beyond atol = rtol = ``tol``."""
+    g, w = got.float(), want.float()
+    require(g.shape == w.shape and got.dtype == want.dtype,
+            f"{what}: {tuple(got.shape)} {got.dtype} vs "
+            f"{tuple(want.shape)} {want.dtype}")
+    err = (g - w).abs()
+    require(bool((err <= tol + tol * w.abs()).all()),
+            f"{what}: beyond {tol} (max abs {float(err.max())})")
+    return float(err.max())
+
+
+# (name, b, sq, skv, causal, window, q_offset, kv_len): gemma2-9b's
+# attention (16 query heads over 8 kv heads of 256, softcap 50) at the
+# serve phase's shapes: a global and a local prefill layer of 8192
+# tokens, a decode layer at the last of 16 steps after that prefill
+# (cache 8192 + 16), and an odd shape that needs padding on both axes
+FLASH_CASES = (
+    ("prefill_global", 1, 8192, 8192, True, None, 0, None),
+    ("prefill_window", 1, 8192, 8192, True, 4096, 0, None),
+    ("decode", 4, 1, 8208, False, 4096, 8207, 8208),
+    ("odd_padded", 1, 1000, 1300, True, 4096, 300, None),
+)
+
+
+def _sdpa_no_softcap(torch, q, k, v, causal, window, q_offset, kv_len):
+    """``F.scaled_dot_product_attention`` on the same shapes and masks
+    but WITHOUT the softcap: a yardstick, not the same function."""
+    import torch.nn.functional as F
+    sq, skv = q.shape[1], k.shape[1]
+    kv_len = skv if kv_len is None else kv_len
+    qp = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kp = torch.arange(kv_len, device=q.device)[None, :]
+    mask = torch.ones((sq, kv_len), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= qp - kp < window
+    qt = q.transpose(1, 2)
+    kt, vt = (x[:, :kv_len].transpose(1, 2) for x in (k, v))
+    if causal and window is None and q_offset == 0 and sq == kv_len:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def phase_flash(torch, dev, reps):
+    """``flash_attention_fused`` against ``flash_attention_ref`` on the
+    card, bf16 and f32, at the serve phase's shapes. ``ms`` times
+    ``ops.fused_attention`` as the model calls it (padding included);
+    ``kernel_ms`` the kernel wrapper alone on padded inputs."""
+    from repro_torch.kernels import flash, ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    flush = torch.empty(1 << 25, dtype=torch.int32, device=dev)
+    hq, hkv, hd, cap = 16, 8, 256, 50.0
+    first = None
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for name, b, sq, skv, causal, window, q_offset, kv_len in FLASH_CASES:
+            q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                       for s in ((b, sq, hq, hd), (b, skv, hkv, hd),
+                                 (b, skv, hkv, hd)))
+            kw = dict(causal=causal, window=window, logit_cap=cap,
+                      q_offset=q_offset, kv_len=kv_len)
+            got = ops.fused_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            err = close_err(got, want, ATTN_TOL[dname],
+                            f"flash {name} {dname}")
+            del got, want
+            bq = min(flash.BLOCK_Q, max(64, 1 << (sq - 1).bit_length()))
+            bkv = min(flash.BLOCK_KV, max(64, 1 << (skv - 1).bit_length()))
+            qp, kp, vp = (ops._pad_seq(x, -(-x.shape[1] // n) * n
+                                       - x.shape[1])
+                          for x, n in ((q, bq), (k, bkv), (v, bkv)))
+            kv_eff = skv if kv_len is None else kv_len
+            pairs, keys = attention_work(torch, b, sq, hq, skv, causal,
+                                         window, q_offset, kv_len)
+            peak = BF16_OPS_PER_S if dtype == torch.bfloat16 \
+                else TF32_OPS_PER_S
+            t_ops = 4 * hd * pairs / peak * 1e3
+            t_bytes = (2 * q.numel() + 2 * b * keys * hkv * hd) \
+                * q.element_size() / HBM_BYTES_PER_S * 1e3
+            rec = {"case": name, "dtype": dname, "q": list(q.shape),
+                   "kv": list(k.shape), "causal": causal, "window": window,
+                   "q_offset": q_offset, "kv_len": kv_eff,
+                   "logit_cap": cap, "max_abs_err": err,
+                   "tol": ATTN_TOL[dname], "pairs": pairs,
+                   "keys_read": keys,
+                   "ms": time_ms(torch, lambda: ops.fused_attention(
+                       q, k, v, **kw), reps, flush),
+                   "kernel_ms": time_ms(
+                       torch, lambda: flash.flash_attention_fused(
+                           qp, kp, vp, causal=causal, window=window,
+                           logit_cap=cap, q_offset=q_offset, kv_len=kv_eff,
+                           block_q=bq, block_kv=bkv), reps, flush),
+                   "plain_ms": time_ms(
+                       torch, lambda: ref.flash_attention_ref(q, k, v, **kw),
+                       max(2, reps // 4), flush),
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "library_ms": None,
+                   "library": "none (softcap)",
+                   "sdpa_ms_no_softcap": time_ms(
+                       torch, _sdpa_no_softcap(torch, q, k, v, causal,
+                                               window, q_offset, kv_len),
+                       reps, flush),
+                   "sdpa_note": "F.scaled_dot_product_attention without "
+                                "the softcap: not the same function"}
+            rec["achieved_tflops"] = 4 * hd * pairs / rec["ms"] / 1e9
+            emit({"phase": "kernel", "kernel": "flash_attention_fused",
+                  **rec})
+            first = first or rec
+            del q, k, v, qp, kp, vp
+            torch.cuda.empty_cache()
+    del flush
+    return first
+
+
+def phase_pack(torch, dev, reps):
+    """``ops.pack`` against ``ref.pack_ref`` on the card, exact, at a
+    drain window's shape: 32768 request slots (24576 live, sorted,
+    disjoint, holes between) packed into a 262144-element window."""
+    from repro_torch.core.requests import PAD_OFFSET, RequestList
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    flush = torch.empty(1 << 25, dtype=torch.int32, device=dev)
+    cap, live, out_len, base = 32768, 24576, 262144, 64 * 262144
+    step = out_len // (2 * live)
+    cuts = (torch.arange(2 * live, device=dev) * step
+            + torch.randint(0, step, (2 * live,), generator=gen, device=dev))
+    cuts = torch.cat([cuts, torch.full((1,), out_len, device=dev)])
+    offs, lens = cuts[0:-1:2], cuts[1::2] - cuts[0:-1:2]
+    off = torch.full((cap,), PAD_OFFSET, dtype=torch.int32, device=dev)
+    ln = torch.zeros((cap,), dtype=torch.int32, device=dev)
+    st = torch.zeros((cap,), dtype=torch.int32, device=dev)
+    off[:live] = (offs + base).to(torch.int32)
+    ln[:live] = lens.to(torch.int32)
+    st[:live] = (torch.cumsum(lens, 0) - lens).to(torch.int32)
+    covered = int(lens.sum().item())
+    data = torch.randint(-2**31, 2**31 - 1, (covered,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    r = RequestList(off, ln, torch.tensor(live, device=dev))
+    got = ops.pack(r, st, data, base, out_len)
+    want = ref.pack_ref(off, ln, st, data, base, out_len)
+    err = max_abs_err(torch, (got,), (want,))
+    require(err == 0, "pack [32768] -> [262144] != pack_ref")
+    b, by = bound(3 * cap * 4 + covered * 4 + out_len * 4,
+                  out_len * math.log2(cap))
+    rec = {"shape": [cap], "live": live, "out_len": out_len,
+           "covered": covered, "max_abs_err": err,
+           "ms": time_ms(torch, lambda: ops.pack(r, st, data, base, out_len),
+                         reps, flush),
+           "plain_ms": time_ms(torch, lambda: ref.pack_ref(
+               off, ln, st, data, base, out_len), reps, flush),
+           "library_ms": None, "bound_ms": b, "bound_by": by}
+    emit({"phase": "kernel", "kernel": "pack", **rec})
+    del flush
+    return rec
+
+
 def phase_small(torch, dev):
     """A small BTIO write on the card equals the same write on the CPU:
     file bytes and every stats key, both methods, fused and unfused."""
@@ -471,7 +667,7 @@ STEPS = {"repro_torch.core.rounds": ("_compact_active", "repack_sorted",
                                      "rle_zero_skip_decode")}
 PORT_KERNELS = ("sort_rows_kernel", "coalesce_rows_kernel",
                 "pack_tiles_kernel", "zero_skip_encode_kernel",
-                "zero_skip_decode_kernel")
+                "zero_skip_decode_kernel", "flash_attention_kernel")
 
 
 @contextlib.contextmanager
@@ -683,6 +879,214 @@ def phase_main(torch, dev):
             for k in kernels.launch_counts()}
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+@contextlib.contextmanager
+def plain_attention(layers, ref):
+    """Force the model's attention through ``flash_attention_ref`` (on
+    the card) for the duration."""
+    saved = layers.flash_attention
+    layers.flash_attention = (
+        lambda q, k, v, **kw: ref.flash_attention_ref(q, k, v, **kw))
+    try:
+        yield
+    finally:
+        layers.flash_attention = saved
+
+
+def logit_stats(torch, got, want, chunk=512):
+    """Relative L2 distance of two ``[B, S, V]`` logit tensors, their
+    largest absolute difference and the share of rows whose greedy
+    token agrees; in row chunks (the logits are 4 GB each)."""
+    got, want = got.reshape(-1, got.shape[-1]), want.reshape(-1,
+                                                             want.shape[-1])
+    num = den = 0.0
+    diff, same = 0.0, 0
+    for i in range(0, got.shape[0], chunk):
+        g, w = got[i:i + chunk].float(), want[i:i + chunk].float()
+        num += float(((g - w) ** 2).sum())
+        den += float((w ** 2).sum())
+        diff = max(diff, float((g - w).abs().max()))
+        same += int((g.argmax(-1) == w.argmax(-1)).sum())
+    return {"rel_l2": math.sqrt(num / den), "max_abs_diff": diff,
+            "top1_equal_share": same / got.shape[0]}
+
+
+def phase_serve(torch, dev):
+    """Greedy serving of gemma2-9b at full width and depth (42 layers,
+    bf16 weights from a seeded ``torch.Generator``), through
+    ``launch.serve.generate`` and the model's prefill / decode_step:
+
+    (a) ``generate`` at the reference CLI's defaults: batch 4, prompt
+        32, 16 new tokens;
+    (b) a batch-1 prefill of 8192 tokens (across the 4096 window of the
+        local layers), then 16 greedy decode steps on that cache.
+
+    Launch counts are set to 0 just before (a) and before (b) and read
+    just after each. Checks: (b)'s prefill and decode logits equal the
+    ``forward`` logits of the same 8208 tokens at the same positions
+    (teacher forcing with the tokens it picked), and ``forward`` through
+    the kernel equals ``forward`` with attention forced through
+    ``flash_attention_ref``, and so do the two prefills, each within a
+    relative L2 distance of ``SERVE_REL_L2``: bf16 activations rounded
+    in other orders across 42 layers (the CPU tests hold the algorithm
+    in f32 at 2e-3). The share of equal greedy tokens is printed, not
+    required."""
+    from repro_torch import configs, kernels
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    cfg = configs.get("gemma2_9b")
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "serve_setup", "config": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab, "window": cfg.window,
+          "params": sum(t.numel() for t in _leaves(params)),
+          "param_bytes": sum(t.numel() * t.element_size()
+                             for t in _leaves(params)),
+          "init_s": time.perf_counter() - t0})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    launches = {}
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # (a) the reference CLI's defaults
+    batch, plen, gen_len = 4, 32, 16
+    prompts = torch.randint(0, cfg.vocab, (batch, plen), generator=gen,
+                            device=dev, dtype=torch.int32)
+    serve.generate(params, cfg, prompts, gen_len)         # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, gen_ms = synced(lambda: serve.generate(params, cfg, prompts,
+                                                gen_len))
+    launches["generate"] = kernels.launch_counts()
+    require(tuple(out.shape) == (batch, gen_len + 1)
+            and bool(((out >= 0) & (out < cfg.vocab)).all()),
+            f"generate: tokens {tuple(out.shape)} out of range")
+    peak_a = torch.cuda.max_memory_allocated(dev)
+    (_, state), prefill_ms = synced(lambda: T.prefill(
+        params, cfg, {"tokens": prompts}))
+    state = serve._grow_caches(state, gen_len)
+    tok = out[:, 0]
+
+    def decode_loop(state, tok, n):
+        for _ in range(n):
+            logits, state = T.decode_step(params, cfg, state, tok)
+            tok = serve.pick(logits, cfg.vocab)
+        return state
+    _, decode_ms = synced(lambda: decode_loop(state, tok, gen_len))
+    emit({"phase": "serve", "run": "generate", "batch": batch,
+          "prompt_len": plen, "new_tokens": gen_len,
+          "generate_ms": gen_ms,
+          "tokens_per_s": batch * (gen_len + 1) / gen_ms * 1e3,
+          "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms / gen_len,
+          "decode_tokens_per_s": batch * gen_len / decode_ms * 1e3,
+          "peak_mem_bytes": peak_a, "launches": launches["generate"],
+          "flash_launches_per_generate":
+              launches["generate"]["flash_attention_fused"],
+          "sample": out[0, :8].tolist()})
+    del state
+
+    # (b) a long prompt across the window, then 16 decode steps
+    plen_b = LONG_PROMPT
+    prompt = torch.randint(0, cfg.vocab, (1, plen_b), generator=gen,
+                           device=dev, dtype=torch.int32)
+    T.prefill(params, cfg, {"tokens": prompt})            # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (logits_p, state), prefill_b_ms = synced(lambda: T.prefill(
+        params, cfg, {"tokens": prompt}))
+    state = serve._grow_caches(state, gen_len)
+    picked, rows = [], [logits_p]
+
+    def decode_b(state):
+        tok = serve.pick(logits_p, cfg.vocab)
+        for _ in range(gen_len):
+            picked.append(tok)
+            logits, state = T.decode_step(params, cfg, state, tok)
+            rows.append(logits)
+            tok = serve.pick(logits, cfg.vocab)
+        return state
+    _, decode_b_ms = synced(lambda: decode_b(state))
+    launches["long"] = kernels.launch_counts()
+    peak_b = torch.cuda.max_memory_allocated(dev)
+    del state
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "run": "long_prompt", "batch": 1,
+          "prompt_len": plen_b, "new_tokens": gen_len,
+          "prefill_ms": prefill_b_ms,
+          "prefill_tokens_per_s": plen_b / prefill_b_ms * 1e3,
+          "decode_ms_per_step": decode_b_ms / gen_len,
+          "decode_tokens_per_s": gen_len / decode_b_ms * 1e3,
+          "peak_mem_bytes": peak_b, "launches": launches["long"]})
+
+    # checks: decode vs forward, kernel vs plain attention
+    full = torch.cat([prompt, torch.stack(picked, dim=1)], dim=1)
+    served = torch.stack(rows, dim=1)                  # [1, 17, V]
+    fwd, _ = T.forward(params, cfg, {"tokens": full})
+    dec_vs_fwd = logit_stats(torch, served, fwd[:, plen_b - 1:])
+    require(dec_vs_fwd["rel_l2"] <= SERVE_REL_L2,
+            f"decode vs forward logits: {dec_vs_fwd}")
+    before = kernels.launch_counts()["flash_attention_fused"]
+    with plain_attention(layers, ref):
+        fwd_plain, _ = T.forward(params, cfg, {"tokens": full})
+        prefill_plain, _ = T.prefill(params, cfg, {"tokens": prompt})
+    require(kernels.launch_counts()["flash_attention_fused"] == before,
+            "the plain-attention runs launched the kernel")
+    kern_vs_plain = logit_stats(torch, fwd, fwd_plain)
+    del fwd, fwd_plain
+    prefill_vs_plain = logit_stats(torch, logits_p[:, None],
+                                   prefill_plain[:, None])
+    for what, st in (("forward", kern_vs_plain),
+                     ("prefill", prefill_vs_plain)):
+        require(st["rel_l2"] <= SERVE_REL_L2,
+                f"{what} through the kernel vs plain attention: {st}")
+    emit({"phase": "serve_checks", "tokens": list(full.shape),
+          "tol_rel_l2": SERVE_REL_L2,
+          "decode_vs_forward": dec_vs_fwd,
+          "forward_kernel_vs_plain": kern_vs_plain,
+          "prefill_kernel_vs_plain": prefill_vs_plain, "ok": True})
+    torch.cuda.empty_cache()
+
+    # profiles (after every count is read): where the time goes
+    emit({"phase": "profile", "method": "serve_generate",
+          **profile_write(torch, serve.generate,
+                          (params, cfg, prompts, gen_len))})
+    emit({"phase": "profile", "method": "serve_prefill_8192",
+          **profile_write(torch, T.prefill,
+                          (params, cfg, {"tokens": prompt}))})
+    _, state = T.prefill(params, cfg, {"tokens": prompt})
+    state = serve._grow_caches(state, gen_len)
+    tok = picked[0]
+    emit({"phase": "profile", "method": "serve_decode_16_at_8192",
+          **profile_write(torch, decode_loop, (state, tok, gen_len))})
+    del state, params
+    torch.cuda.empty_cache()
+    return {k: sum(c[k] for c in launches.values())
+            for k in kernels.launch_counts()}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -716,9 +1120,15 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     measured = phase_kernels(torch, dev, REPS)
+    measured["pack"] = phase_pack(torch, dev, REPS)
+    measured["flash_attention_fused"] = phase_flash(torch, dev, REPS)
     phase_small(torch, dev)
     phase_small_codecs(torch, dev)
     launches = phase_main(torch, dev)
+    served = phase_serve(torch, dev)
+    launches = {k: launches[k] + served[k] for k in launches}
+    require(served["flash_attention_fused"] > 0,
+            "serve: flash_attention_fused never launched")
 
     emit({"phase": "kernel_status",
           "table": [{"name": n, "replaces": r, "status": s,

@@ -1,0 +1,8 @@
+"""qwen1.5-32b [dense] — QKV bias [hf:Qwen/Qwen1.5-0.5B; hf]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-32b", family="dense",
+    n_layers=64, d_model=5120, n_heads=40, n_kv_heads=40,
+    d_ff=27392, vocab=152064, rope_theta=1e6, qkv_bias=True,
+)

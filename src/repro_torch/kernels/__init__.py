@@ -7,6 +7,11 @@
 * ``fused_round.zero_skip_encode`` / ``zero_skip_decode`` — the rle
   codec's wire on the slow hop: per-row zero-skip compaction and its
   inverse scatter (CUDA);
+* ``pack.pack`` — gather-form pack of sorted requests into a window
+  (CUDA, the drain's tile kernel without sort and mask);
+* ``flash.flash_attention_fused`` — online-softmax GQA attention with
+  causal, window, softcap and kv_len masks, the serving path's
+  attention (CUDA);
 * ``ref`` — the plain PyTorch versions the wrappers run on the CPU;
 * ``ops`` — padding, chunking and RequestList integration;
 * ``build`` — the nvcc build and ctypes loading, at first launch.
@@ -17,13 +22,15 @@ integer attribute, ``<wrapper>.launches``.
 from __future__ import annotations
 
 from repro_torch.kernels.coalesce_kernel import coalesce
+from repro_torch.kernels.flash import flash_attention_fused
 from repro_torch.kernels.fused_round import (fused_sort_pack,
                                             zero_skip_decode,
                                             zero_skip_encode)
+from repro_torch.kernels import pack as _pack_module   # keeps .pack a module
 from repro_torch.kernels.sort import bitonic_sort
 
 KERNELS = (bitonic_sort, coalesce, fused_sort_pack, zero_skip_encode,
-           zero_skip_decode)
+           zero_skip_decode, _pack_module.pack, flash_attention_fused)
 
 
 def launch_counts() -> dict[str, int]:

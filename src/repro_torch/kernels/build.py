@@ -25,14 +25,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sort.cu", "coalesce_kernel.cu", "fused_round.cu",
-           "zero_skip.cu")
-HEADERS = ("common.cuh", "bitonic.cuh")
+           "zero_skip.cu", "pack.cu", "flash.cu")
+HEADERS = ("common.cuh", "bitonic.cuh", "pack_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "repro_bitonic_sort": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "repro_coalesce": (_P, _P, _P, _P, _P, _I, _I, _P),
@@ -40,6 +41,9 @@ _SIGNATURES = {
                               _LL, _LL, _I, ctypes.c_ulonglong, _P),
     "repro_zero_skip_encode": (_P, _P, _P, _I, _I, _I, _P),
     "repro_zero_skip_decode": (_P, _P, _P, _I, _I, _P),
+    "repro_pack": (_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _P),
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                              _I, _I, _F, _I, _I, _I, _P),
 }
 
 

@@ -12,7 +12,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.requests import PAD_OFFSET, RequestList
-from repro_torch.kernels import coalesce_kernel, fused_round
+from repro_torch.kernels import coalesce_kernel, flash, fused_round
+from repro_torch.kernels import pack as pack_mod
 from repro_torch.kernels import sort as sort_mod
 
 
@@ -96,6 +97,21 @@ def coalesce(r: RequestList) -> RequestList:
                        cl[:, :cap].reshape(shape), cnt.reshape(lead))
 
 
+def pack(r: RequestList, starts: torch.Tensor, data: torch.Tensor, base,
+         out_len: int) -> torch.Tensor:
+    """Kernel-backed ``coalesce.pack_data`` for one offset-sorted,
+    non-overlapping ``[cap]`` request list (``pack.pack``): pads the list
+    to a power of two and the output to whole tiles, returns exactly
+    ``[out_len]``."""
+    cap = _next_pow2(r.capacity)
+    padded_out = -(-out_len // pack_mod.TILE) * pack_mod.TILE
+    out = pack_mod.pack(_pad_block(r.offsets, cap, PAD_OFFSET),
+                        _pad_block(r.lengths, cap, 0),
+                        _pad_block(starts, cap, 0), data.contiguous(), base,
+                        padded_out)
+    return out[:out_len]
+
+
 def fused_drain_pack(r: RequestList, starts: torch.Tensor,
                      data: torch.Tensor, base, out_len: int):
     """Kernel-backed drain: ``sort_with`` + two ``pack_data`` in one
@@ -146,3 +162,31 @@ def rle_zero_skip_decode(parts) -> torch.Tensor:
         _pad_block(vals.reshape(-1, cap), n, 0),
         _pad_block(pos.reshape(-1, cap), n, -1))
     return out[:, :cap].reshape(*lead, cap)
+
+
+def _pad_seq(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Pad axis 1 of ``[B, S, H, hd]`` with ``pad`` zero rows."""
+    if pad == 0:
+        return x.contiguous()
+    return F.pad(x, (0, 0, 0, 0, 0, pad))
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    logit_cap: float | None = None, q_offset: int = 0,
+                    kv_len: int | None = None) -> torch.Tensor:
+    """Padding wrapper over ``flash.flash_attention_fused``: accepts any
+    Sq/Skv, pads them to the block sizes, bounds the real keys with
+    ``kv_len`` (``Skv``, or the caller's smaller valid prefix, as in a
+    decode cache; padded keys never enter the softmax), slices back."""
+    sq, skv = q.shape[1], k.shape[1]
+    bq = min(flash.BLOCK_Q, max(64, 1 << (sq - 1).bit_length()))
+    bkv = min(flash.BLOCK_KV, max(64, 1 << (skv - 1).bit_length()))
+    pq = -(-sq // bq) * bq - sq
+    pk = -(-skv // bkv) * bkv - skv
+    out = flash.flash_attention_fused(
+        _pad_seq(q, pq), _pad_seq(k, pk), _pad_seq(v, pk), causal=causal,
+        window=window, logit_cap=logit_cap, q_offset=q_offset,
+        kv_len=skv if kv_len is None else min(int(kv_len), skv),
+        block_q=bq, block_kv=bkv)
+    return out[:, :sq]

@@ -8,7 +8,10 @@ on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.codec import get_codec
 from repro_torch.core.coalesce import pack_data
@@ -100,3 +103,87 @@ def zero_skip_decode_ref(vals: torch.Tensor, pos: torch.Tensor):
     ``pos == -1`` — the rle codec's decode, the plain version of
     ``fused_round.zero_skip_decode``."""
     return get_codec("rle").tensor_decode((vals, pos))
+
+
+def pack_ref(offsets: torch.Tensor, lengths: torch.Tensor,
+             starts: torch.Tensor, data: torch.Tensor, base,
+             out_len: int) -> torch.Tensor:
+    """Gather-form pack of offset-sorted, non-overlapping ``[cap]``
+    requests into ``[out_len]``: position p takes the last request with
+    offset <= p + base (int32 arithmetic, as on the TPU) and, where that
+    request covers it, ``data[start + within]`` (clipped into ``data``),
+    else 0 — the plain version of ``pack.pack``."""
+    p = torch.arange(out_len, dtype=torch.int32,
+                     device=offsets.device) + int(base)
+    r = torch.searchsorted(offsets.contiguous(), p, right=True) - 1
+    r_c = r.clamp(0, offsets.shape[0] - 1)
+    within = p.to(torch.int64) - offsets[r_c].to(torch.int64)
+    covered = (r >= 0) & (within < lengths[r_c])
+    src = (starts[r_c].to(torch.int64) + within).clamp(0, data.shape[0] - 1)
+    return torch.where(covered, data[src], torch.zeros((), dtype=data.dtype,
+                                                       device=data.device))
+
+
+ATTENTION_CHUNK = 4096   # the reference's default (REPRO_PERF_OPTS on)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, window: int | None,
+                        logit_cap: float | None, q_offset: int,
+                        kv_len: int | None = None) -> torch.Tensor:
+    """Chunked (flash-style) GQA attention, O(S * chunk) memory — the
+    reference's ``models.layers.flash_attention`` line for line at its
+    default (chunk 4096; probabilities and values rounded to bf16 for
+    the PV product, accumulated in f32), and the plain version of
+    ``flash.flash_attention_fused``.
+
+    q: ``[B, Sq, Hq, hd]``; k, v: ``[B, Skv, Hkv, hd]``. q_offset: the
+    position of q[0] within the kv sequence; kv_len: the valid kv prefix
+    (a decode cache), or None.
+    """
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    chunk = ATTENTION_CHUNK
+    qr = q.reshape(b, sq, hkv, g, hd).float()
+    scale = 1.0 / math.sqrt(hd)
+    nchunks = -(-skv // chunk)
+    pad = nchunks * chunk - skv
+    kc = F.pad(k, (0, 0, 0, 0, 0, pad)).reshape(b, nchunks, chunk, hkv, hd)
+    vc = F.pad(v, (0, 0, 0, 0, 0, pad)).reshape(b, nchunks, chunk, hkv, hd)
+    dev = q.device
+    qpos = q_offset + torch.arange(sq, device=dev)
+    m = torch.full((b, sq, hkv, g), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, sq, hkv, g), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, sq, hkv, g, hd), dtype=torch.float32, device=dev)
+    for cidx in range(nchunks):
+        kci = kc[:, cidx].float()
+        vci = vc[:, cidx].float()
+        kvpos = cidx * chunk + torch.arange(chunk, device=dev)
+        logits = torch.einsum("bskgd,bckd->bskgc", qr, kci) * scale
+        if logit_cap is not None:
+            logits = logit_cap * torch.tanh(logits / logit_cap)
+        # padded keys (skv -> nchunks*chunk) must never enter the softmax
+        mask = (kvpos[None, :] < skv)
+        if causal:
+            mask = mask & (kvpos[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & (qpos[:, None] - kvpos[None, :] < window)
+        if kv_len is not None:
+            mask = mask & (kvpos[None, :] < kv_len)
+        logits = torch.where(mask[None, :, None, None, :], logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        probs = torch.exp(logits - m_new[..., None])
+        del logits
+        l = l * alpha + probs.sum(dim=-1)
+        # bf16 operands, f32 products and sums: the reference's
+        # preferred_element_type=f32 einsum of bf16 probs and values
+        pv = torch.einsum("bskgc,bckd->bskgd",
+                          probs.to(torch.bfloat16).float(),
+                          vci.to(torch.bfloat16).float())
+        del probs
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, sq, hq, hd).to(q.dtype)

@@ -259,3 +259,159 @@ def test_cuda_codec_write_and_read_equal_cpu(cuda, method, codec):
         band = 5e-2 * np.abs(ref).max()
         assert np.abs(f_gpu.cpu().numpy().reshape(-1) - ref).max() < band
         assert (p_gpu.cpu() - p_cpu).abs().max().item() < band
+
+
+def _sorted_requests(rng, n, cap):
+    """Offset-sorted disjoint requests with gaps, PAD tail, packed
+    payload starts."""
+    gaps = rng.integers(1, 9, size=n)
+    lens = rng.integers(1, 6, size=n).astype(np.int32)
+    offs = (np.cumsum(gaps) + np.concatenate([[0], np.cumsum(lens)[:-1]])
+            ).astype(np.int32)
+    o = np.full(cap, PAD, np.int32)
+    ln = np.zeros(cap, np.int32)
+    st = np.zeros(cap, np.int32)
+    o[:n], ln[:n] = offs, lens
+    st[:n] = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    return o, ln, st, int(lens.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32,
+                                   torch.bfloat16, torch.uint8, torch.int64])
+@pytest.mark.parametrize("n,cap,base", [(1, 2, 0), (300, 512, 40),
+                                        (20000, 32768, 4096 * 5 + 3)])
+def test_cuda_pack_equals_plain(cuda, dtype, n, cap, base):
+    """The pack kernel equals its plain version exactly, through
+    ops.pack (which pads the window to whole tiles)."""
+    from repro_torch.kernels import ops as t_ops
+    from repro_torch.kernels import pack as t_pack
+    rng = np.random.default_rng(n)
+    o, ln, st, total = _sorted_requests(rng, n, cap)
+    data = _t(rng.integers(1, 100, size=total + 3)).to(cuda).to(dtype)
+    r = t_rq.RequestList(_t(o).to(cuda), _t(ln).to(cuda),
+                         torch.tensor(n, device=cuda))
+    out_len = int(o[n - 1]) + int(ln[n - 1]) + 5 - base
+    before = t_pack.pack.launches
+    got = t_ops.pack(r, _t(st).to(cuda), data, base, out_len)
+    assert t_pack.pack.launches == before + 1
+    padded = -(-out_len // t_pack.TILE) * t_pack.TILE
+    want = t_ref.pack_ref(r.offsets, r.lengths, _t(st).to(cuda), data, base,
+                          padded)[:out_len]
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+# (b, sq, skv, hq, hkv, hd, causal, window, cap, q_offset, kv_len)
+FLASH_CASES = [
+    (1, 256, 512, 4, 4, 64, True, None, None, 256, None),     # MHA
+    (2, 256, 512, 8, 2, 64, True, None, None, 256, None),     # GQA g=4
+    (1, 512, 512, 7, 1, 32, True, None, None, 0, None),       # g=7
+    (1, 256, 1024, 8, 8, 128, True, None, None, 768, None),   # hd=128
+    (2, 256, 512, 4, 2, 64, True, 64, 30.0, 256, None),       # window+cap
+    (1, 256, 256, 4, 4, 64, False, None, None, 0, None),      # non-causal
+    (1, 512, 512, 16, 8, 256, True, 100, 50.0, 0, None),      # gemma2 local
+    (4, 64, 576, 16, 8, 256, False, 300, 50.0, 400, 401),     # decode
+    (3, 64, 128, 14, 2, 80, True, None, None, 64, 100),       # hd 80, kv_len
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_attention_equals_plain(cuda, dtype, case):
+    """The flash kernel against flash_attention_ref on the same card
+    inputs: 5e-3 for f32, 5e-2 for bf16 (the reference's kernel test
+    tolerances; both round probabilities and values to bf16 for the PV
+    product, and sum in other orders)."""
+    from repro_torch.kernels import flash as t_flash
+    b, sq, skv, hq, hkv, hd, causal, window, cap, q_offset, kv_len = case
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sq + skv + hd)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+               for s in ((b, sq, hq, hd), (b, skv, hkv, hd),
+                         (b, skv, hkv, hd)))
+    kw = dict(causal=causal, window=window, logit_cap=cap,
+              q_offset=q_offset, kv_len=kv_len)
+    before = t_flash.flash_attention_fused.launches
+    got = t_flash.flash_attention_fused(q, k, v, block_q=64, block_kv=64,
+                                        **kw)
+    assert t_flash.flash_attention_fused.launches == before + 1
+    want = t_ref.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 5e-3 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_attention_pads_decode_and_odd_shapes(cuda, dtype):
+    """ops.fused_attention on the card: a decode step (Sq 1 padded to 64,
+    kv_len = pos + 1 into a longer cache, the window) and odd Sq/Skv,
+    against the plain version on the unpadded inputs."""
+    from repro_torch.kernels import ops as t_ops
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    tol = 5e-3 if dtype == torch.float32 else 5e-2
+    for (b, sq, skv, causal, window, q_offset, kv_len) in (
+            (4, 1, 300, False, 128, 200, 201),
+            (1, 200, 300, True, None, 100, None),
+            (2, 77, 77, True, 50, 0, None)):
+        q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+                   for s in ((b, sq, 16, 256), (b, skv, 8, 256),
+                             (b, skv, 8, 256)))
+        kw = dict(causal=causal, window=window, logit_cap=50.0,
+                  q_offset=q_offset, kv_len=kv_len)
+        got = t_ops.fused_attention(q, k, v, **kw)
+        want = t_ref.flash_attention_ref(q, k, v, **kw)
+        assert got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import flash as t_flash
+    q = torch.zeros((1, 64, 2, 16), dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        t_flash.flash_attention_fused(q, q, q, block_q=64, block_kv=64)
+    q = torch.zeros((1, 64, 2, 512), device=cuda)
+    with pytest.raises(ValueError):
+        t_flash.flash_attention_fused(q, q, q, block_q=64, block_kv=64)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_matches_cpu_serve(cuda):
+    """Reduced gemma2 (window cut to 6) in f32: the card's prefill and
+    teacher-forced decode, through the flash kernel, give the CPU's
+    plain path's logits within 2e-3; generate runs on the card."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash as t_flash
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import reduced
+    cfg = reduced(configs.get("gemma2_9b"), window=6)
+    params = T.init_params(0, cfg, dtype=torch.float32, device="cpu")
+    params_gpu = _to(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 16)).astype(np.int32))
+    before = t_flash.flash_attention_fused.launches
+    out = serve.generate(params_gpu, cfg, tokens[:, :8].to(cuda), 4)
+    assert out.shape == (2, 5)
+    assert t_flash.flash_attention_fused.launches > before
+    lg, sg = T.prefill(params_gpu, cfg, {"tokens": tokens[:, :8].to(cuda)})
+    lc, sc = T.prefill(params, cfg, {"tokens": tokens[:, :8]})
+    torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+    sg, sc = serve._grow_caches(sg, 8), serve._grow_caches(sc, 8)
+    for t in range(8, 16):
+        lg, sg = T.decode_step(params_gpu, cfg, sg, tokens[:, t].to(cuda))
+        lc, sc = T.decode_step(params, cfg, sc, tokens[:, t])
+        torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)

@@ -30,8 +30,8 @@ PORT_FILES = sorted(PORT.rglob("*.py"))
 def test_port_has_python_and_cuda_sources():
     assert len(PORT_FILES) > 15
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
-        == ["coalesce_kernel.cu", "fused_round.cu", "sort.cu",
-            "zero_skip.cu"]
+        == ["coalesce_kernel.cu", "flash.cu", "fused_round.cu", "pack.cu",
+            "sort.cu", "zero_skip.cu"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -44,7 +44,10 @@ def test_no_jax_or_reference_import(path):
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.core, repro_torch.kernels.ops, "
-            "repro_torch.kernels.ref, repro_torch.io_patterns.generators; "
+            "repro_torch.kernels.ref, repro_torch.io_patterns.generators, "
+            "repro_torch.configs, repro_torch.models.transformer, "
+            "repro_torch.models.weights, repro_torch.launch.serve; "
+            "[repro_torch.configs.get(a) for a in repro_torch.configs.ARCHS]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -60,6 +63,11 @@ def _entry_points():
                                   make_collective_write, make_tam_read,
                                   make_tam_write, make_twophase_read,
                                   make_twophase_write, requests_from_numpy)
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import reduced
+    from repro_torch.models.weights import params_from_numpy
+    cfg_lm = reduced(configs.get("gemma2_9b"))
     mesh = RankMesh(2, 1, 2)
     layout = contiguous_layout(64, 2)
     cfg = IOConfig(req_cap=4, data_cap=16)
@@ -75,6 +83,11 @@ def _entry_points():
                                                          **kw),
         "tam_read": lambda **kw: make_tam_read(mesh, layout, cfg, **kw),
         "requests": lambda **kw: requests_from_numpy(O, O, C, D, **kw),
+        "init_params": lambda **kw: T.init_params(0, cfg_lm, **kw),
+        "init_decode_state": lambda **kw: T.init_decode_state(cfg_lm, 1, 4,
+                                                              **kw),
+        "params_from_numpy": lambda **kw: params_from_numpy(
+            {"w": np.zeros(2, np.float32)}, **kw),
     }
 
 

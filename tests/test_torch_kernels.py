@@ -18,13 +18,16 @@ from repro.core.requests import RequestList as JRequestList  # noqa: E402
 from repro.kernels import coalesce_kernel as j_ck  # noqa: E402
 from repro.kernels import fused_round as j_fr  # noqa: E402
 from repro.kernels import ops as j_ops  # noqa: E402
+from repro.kernels import ref as j_ref  # noqa: E402
 from repro.kernels import sort as j_sort  # noqa: E402
 
 from repro_torch import kernels as t_kernels  # noqa: E402
 from repro_torch.core import requests as t_rq  # noqa: E402
 from repro_torch.kernels import coalesce_kernel as t_ck  # noqa: E402
 from repro_torch.kernels import fused_round as t_fr  # noqa: E402
+from repro_torch.kernels import flash as t_flash  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
+from repro_torch.kernels import pack as t_pack  # noqa: E402
 from repro_torch.kernels import sort as t_sort  # noqa: E402
 
 PAD = t_rq.PAD_OFFSET
@@ -294,6 +297,64 @@ def test_fused_sort_pack_rejects_bad_shapes(bad):
                              0, 4096 if bad == "cap" else 100)
 
 
+# ------------------------------------------------------------------ pack
+
+@pytest.mark.parametrize("n,cap,seed", [(1, 1, 0), (5, 8, 1), (60, 60, 2),
+                                        (2000, 3000, 3), (20000, 32768, 4)])
+def test_ops_pack_matches_scatter_oracles(n, cap, seed):
+    """ops.pack (the plain version on the CPU) equals the reference's
+    scatter oracle ``ref.pack_ref`` and ``coalesce.pack_data``."""
+    rng = np.random.default_rng(seed)
+    o, ln = _random_sorted(rng, n, cap)
+    jr = JRequestList(jnp.asarray(o), jnp.asarray(ln), jnp.int32(n))
+    starts = np.array(j_co.request_starts(jr))
+    data = rng.integers(1, 1 << 30, size=max(int(ln.sum()), 1)
+                        ).astype(np.int32)
+    out_len = int(o[n - 1]) + int(ln[n - 1]) + 5
+    tr = t_rq.RequestList(_t(o), _t(ln), torch.tensor(n))
+    got = t_ops.pack(tr, _t(starts), _t(data), 0, out_len)
+    assert tuple(got.shape) == (out_len,)
+    np.testing.assert_array_equal(
+        _np(got), np.asarray(j_ref.pack_ref(o, ln, starts, data, 0,
+                                            out_len)))
+    np.testing.assert_array_equal(
+        _np(got), np.asarray(j_co.pack_data(jr, jnp.asarray(starts),
+                                            jnp.asarray(data), out_len)))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_ops_pack_base_window_matches_reference_kernel(dtype):
+    """A window that starts inside the requests (base > 0), in both
+    payload types: equal to the reference's Pallas pack (interpret mode)
+    and its scatter oracle."""
+    rng = np.random.default_rng(5)
+    o, ln = _random_sorted(rng, 300, 512)
+    jr = JRequestList(jnp.asarray(o), jnp.asarray(ln), jnp.int32(300))
+    starts = np.array(j_co.request_starts(jr))
+    data = rng.integers(1, 1 << 20, size=int(ln.sum())).astype(dtype)
+    base, out_len = int(o[100]) + 2, 700
+    tr = t_rq.RequestList(_t(o), _t(ln), torch.tensor(300))
+    got = t_ops.pack(tr, _t(starts), _t(data), base, out_len)
+    assert got.dtype == _t(data).dtype
+    want = j_ops.pack(jr, jnp.asarray(starts), jnp.asarray(data), base,
+                      out_len, interpret=True)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    np.testing.assert_array_equal(
+        _np(got), np.asarray(j_ref.pack_ref(o, ln, starts, data, base,
+                                            out_len)))
+
+
+@pytest.mark.parametrize("bad", ["cap", "out_len", "rank"])
+def test_pack_rejects_bad_shapes(bad):
+    cap = {"cap": 40000}.get(bad, 64)
+    x = torch.zeros((cap,), dtype=torch.int32)
+    data = torch.zeros((8,), dtype=torch.int32)
+    if bad == "rank":
+        x = x[None]
+    with pytest.raises(ValueError):
+        t_pack.pack(x, x, x, data, 0, 100 if bad == "out_len" else 4096)
+
+
 # ------------------------------------------------- zero_skip_encode/decode
 
 def _zero_skip_rows(rng, rows, n, dtype):
@@ -372,9 +433,13 @@ def test_cpu_path_launches_nothing():
     t_ck.coalesce(x, x)
     t_fr.fused_sort_pack(x, x, x, x, 0, 4096)
     t_fr.zero_skip_decode(*t_fr.zero_skip_encode(x))
+    t_pack.pack(x[0], x[0], x[0], x[0], 0, 4096)
+    q = torch.zeros((1, 64, 2, 16))
+    t_flash.flash_attention_fused(q, q, q, block_q=64, block_kv=64)
     assert t_kernels.launch_counts() == {
         "bitonic_sort": 0, "coalesce": 0, "fused_sort_pack": 0,
-        "zero_skip_encode": 0, "zero_skip_decode": 0}
+        "zero_skip_encode": 0, "zero_skip_decode": 0, "pack": 0,
+        "flash_attention_fused": 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path():
@@ -384,6 +449,10 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
                  lambda: t_ck.coalesce(x, x),
                  lambda: t_fr.fused_sort_pack(x, x, x, x, 0, 4096),
                  lambda: t_fr.zero_skip_encode(x),
-                 lambda: t_fr.zero_skip_decode(x, x)):
+                 lambda: t_fr.zero_skip_decode(x, x),
+                 lambda: t_pack.pack(x[0], x[0], x[0], x[0], 0, 4096),
+                 lambda: t_flash.flash_attention_fused(
+                     *(torch.zeros((1, 64, 2, 16), device="meta"),) * 3,
+                     block_q=64, block_kv=64)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
