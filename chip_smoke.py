@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes the
 main path gives it (exact equality for the I/O kernels, which move
-words and do no arithmetic on them; 5e-3 for f32 and 5e-2 for bf16
-attention), checks small writes and reads with every slow-hop codec on
+words and do no arithmetic on them; for attention every element within
+5e-3 (f32) or 8e-3 (bf16, one bf16 ulp) and a relative L2 distance of at
+most 1e-2, with planted faults shown to fail that limit), checks small writes and reads with every slow-hop codec on
 the card against the CPU, then drives the main paths:
 
 * on the BTIO deployment (16 nodes x 64 ranks, one global aggregator per
@@ -25,7 +26,8 @@ the card against the CPU, then drives the main paths:
   new tokens, and one 8192-token prompt followed by 16 decode steps,
   every attention through the flash kernel; its logits are checked
   against ``forward`` and against attention forced through the plain
-  version.
+  version, and the attention of its first local and first global layer
+  against the plain version, where planted faults must fail.
 
 Every phase prints one JSON line; any failed check raises, and the run
 exits non-zero. The line before the last lists every kernel with its
@@ -52,7 +54,10 @@ FP32_OPS_PER_S = 67e12        # H100 SXM non-tensor float32 rate; no
                               # int32 row in the table, used for compares
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 tensor-core rate
-ATTN_TOL = {"bfloat16": 5e-2, "float32": 5e-3}   # test_flash_kernel.py's
+# attention: atol = rtol per element (f32: test_flash_kernel.py's; bf16:
+# one bf16 ulp, 2^-7 relative) and a relative L2 distance for both
+ATTN_TOL = {"bfloat16": 8e-3, "float32": 5e-3}
+ATTN_REL_L2 = 1e-2
 SERVE_REL_L2 = 5e-2           # bf16 logits, 42 layers: see phase_serve
 LONG_PROMPT = 8192            # crosses gemma2's 4096 window
 REPLACES = {
@@ -82,6 +87,11 @@ TABLE = (   # every pallas_call of the reference, by def line
     ("pack", "src/repro/kernels/pack.py:56", "ported"),
     ("flash_attention_fused", "src/repro/kernels/flash.py:92", "ported"),
 )
+NOTES = {"flash_attention_fused":
+         "ports the semantics of the model's attention "
+         "(src/repro/models/layers.py:112 at its default): p and v rounded "
+         "to bf16 for p.v, summed in f32, f32 inputs included; the Pallas "
+         "kernel keeps p.v in f32"}
 
 
 def emit(obj) -> None:
@@ -367,16 +377,40 @@ def attention_work(torch, b, sq, hq, skv, causal, window, q_offset,
     return b * hq * int((hi - lo).clamp(min=0).sum()), keys
 
 
-def close_err(got, want, tol: float, what: str) -> float:
-    """Max |got - want|; fails beyond atol = rtol = ``tol``."""
+def attn_err(got, want, tol: float) -> dict:
+    """Max |got - want|, the relative L2 distance, the scale of ``want``
+    (its root mean square), and whether both limits hold: every element
+    within atol = rtol = ``tol`` and the distance within
+    ``ATTN_REL_L2``."""
     g, w = got.float(), want.float()
     require(g.shape == w.shape and got.dtype == want.dtype,
-            f"{what}: {tuple(got.shape)} {got.dtype} vs "
+            f"{tuple(got.shape)} {got.dtype} vs "
             f"{tuple(want.shape)} {want.dtype}")
     err = (g - w).abs()
-    require(bool((err <= tol + tol * w.abs()).all()),
-            f"{what}: beyond {tol} (max abs {float(err.max())})")
-    return float(err.max())
+    rel = float((g - w).norm() / w.norm())
+    return {"max_abs_err": float(err.max()), "rel_l2": rel,
+            "rms_want": float(w.pow(2).mean().sqrt()),
+            "within": bool((err <= tol + tol * w.abs()).all())
+            and rel <= ATTN_REL_L2}
+
+
+def attention_bound(torch, q_shape, k_shape, itemsize, causal, window,
+                    q_offset, kv_len):
+    """``(bound_ms, bound_by, pairs, keys)`` of one attention call: the
+    FLOPs of the unmasked pairs (two products of hd) at the dense
+    tensor-core rate of the type (bf16; TF32 for f32), and the bytes of
+    q, out and the keys and values some query sees at the memory
+    rate."""
+    b, sq, hq, hd = q_shape
+    skv, hkv = k_shape[1], k_shape[2]
+    pairs, keys = attention_work(torch, b, sq, hq, skv, causal, window,
+                                 q_offset, kv_len)
+    peak = BF16_OPS_PER_S if itemsize == 2 else TF32_OPS_PER_S
+    t_ops = 4 * hd * pairs / peak * 1e3
+    t_bytes = (2 * b * sq * hq * hd + 2 * b * keys * hkv * hd) \
+        * itemsize / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", pairs, keys)
 
 
 # (name, b, sq, skv, causal, window, q_offset, kv_len): gemma2-9b's
@@ -414,12 +448,31 @@ def _sdpa_no_softcap(torch, q, k, v, causal, window, q_offset, kv_len):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
+def planted_faults(ops, q, k, v, got, kw):
+    """Wrong attentions at this case's shapes, which the check must
+    fail: the kernel's output halved, and the kernel run with a mask
+    dropped (the window, the causal mask) or with its keys cut short by
+    one 64-key tile."""
+    faults = {"halved": lambda: got * 0.5}
+    if kw.get("window") is not None and \
+            kw["q_offset"] + q.shape[1] > kw["window"]:
+        faults["window_dropped"] = lambda: ops.fused_attention(
+            q, k, v, **{**kw, "window": None})
+    if kw["causal"]:
+        faults["causal_dropped"] = lambda: ops.fused_attention(
+            q, k, v, **{**kw, "causal": False})
+    if kw.get("kv_len") is not None:
+        faults["kv_len_short_one_tile"] = lambda: ops.fused_attention(
+            q, k, v, **{**kw, "kv_len": kw["kv_len"] - 64})
+    return faults   # a mask that masks nothing here plants no fault
+
+
 def phase_flash(torch, dev, reps):
     """``flash_attention_fused`` against ``flash_attention_ref`` on the
-    card, bf16 and f32, at the serve phase's shapes. ``ms`` times
-    ``ops.fused_attention`` as the model calls it (padding included);
-    ``kernel_ms`` the kernel wrapper alone on padded inputs."""
-    from repro_torch.kernels import flash, ops, ref
+    card, bf16 and f32, at the serve phase's shapes, through
+    ``ops.fused_attention`` as the model calls it. Each case also holds
+    planted faults to the same limit and requires that they fail it."""
+    from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     flush = torch.empty(1 << 25, dtype=torch.int32, device=dev)
@@ -427,6 +480,7 @@ def phase_flash(torch, dev, reps):
     first = None
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
+        tol = ATTN_TOL[dname]
         for name, b, sq, skv, causal, window, q_offset, kv_len in FLASH_CASES:
             q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
                        for s in ((b, sq, hq, hd), (b, skv, hkv, hd),
@@ -435,40 +489,34 @@ def phase_flash(torch, dev, reps):
                       q_offset=q_offset, kv_len=kv_len)
             got = ops.fused_attention(q, k, v, **kw)
             want = ref.flash_attention_ref(q, k, v, **kw)
-            err = close_err(got, want, ATTN_TOL[dname],
-                            f"flash {name} {dname}")
+            check = attn_err(got, want, tol)
+            planted = {}
+            for fault, fn in planted_faults(ops, q, k, v, got, kw).items():
+                planted[fault] = attn_err(fn(), want, tol)
             del got, want
-            bq = min(flash.BLOCK_Q, max(64, 1 << (sq - 1).bit_length()))
-            bkv = min(flash.BLOCK_KV, max(64, 1 << (skv - 1).bit_length()))
-            qp, kp, vp = (ops._pad_seq(x, -(-x.shape[1] // n) * n
-                                       - x.shape[1])
-                          for x, n in ((q, bq), (k, bkv), (v, bkv)))
             kv_eff = skv if kv_len is None else kv_len
-            pairs, keys = attention_work(torch, b, sq, hq, skv, causal,
-                                         window, q_offset, kv_len)
-            peak = BF16_OPS_PER_S if dtype == torch.bfloat16 \
-                else TF32_OPS_PER_S
-            t_ops = 4 * hd * pairs / peak * 1e3
-            t_bytes = (2 * q.numel() + 2 * b * keys * hkv * hd) \
-                * q.element_size() / HBM_BYTES_PER_S * 1e3
+            bound_ms, bound_by, pairs, keys = attention_bound(
+                torch, q.shape, k.shape, q.element_size(), causal, window,
+                q_offset, kv_len)
             rec = {"case": name, "dtype": dname, "q": list(q.shape),
                    "kv": list(k.shape), "causal": causal, "window": window,
                    "q_offset": q_offset, "kv_len": kv_eff,
-                   "logit_cap": cap, "max_abs_err": err,
-                   "tol": ATTN_TOL[dname], "pairs": pairs,
-                   "keys_read": keys,
+                   "logit_cap": cap, "max_abs_err": check["max_abs_err"],
+                   "rel_l2": check["rel_l2"], "rms_want": check["rms_want"],
+                   "tol": tol, "tol_rel_l2": ATTN_REL_L2,
+                   "planted_rel_l2": {f: c["rel_l2"]
+                                      for f, c in planted.items()},
+                   "planted_max_abs_err": {f: c["max_abs_err"]
+                                           for f, c in planted.items()},
+                   "pv": "bf16 p and v, f32 sum (the model attention's "
+                         "default; the Pallas kernel keeps p.v in f32)",
+                   "pairs": pairs, "keys_read": keys,
                    "ms": time_ms(torch, lambda: ops.fused_attention(
                        q, k, v, **kw), reps, flush),
-                   "kernel_ms": time_ms(
-                       torch, lambda: flash.flash_attention_fused(
-                           qp, kp, vp, causal=causal, window=window,
-                           logit_cap=cap, q_offset=q_offset, kv_len=kv_eff,
-                           block_q=bq, block_kv=bkv), reps, flush),
                    "plain_ms": time_ms(
                        torch, lambda: ref.flash_attention_ref(q, k, v, **kw),
                        max(2, reps // 4), flush),
-                   "bound_ms": max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": None,
                    "library": "none (softcap)",
                    "sdpa_ms_no_softcap": time_ms(
@@ -480,8 +528,12 @@ def phase_flash(torch, dev, reps):
             rec["achieved_tflops"] = 4 * hd * pairs / rec["ms"] / 1e9
             emit({"phase": "kernel", "kernel": "flash_attention_fused",
                   **rec})
+            require(check["within"], f"flash {name} {dname}: {check}")
+            for fault, c in planted.items():
+                require(not c["within"], f"flash {name} {dname}: the "
+                        f"planted fault {fault} passes the check: {c}")
             first = first or rec
-            del q, k, v, qp, kp, vp
+            del q, k, v
             torch.cuda.empty_cache()
     del flush
     return first
@@ -891,16 +943,44 @@ def _leaves(tree):
 
 
 @contextlib.contextmanager
-def plain_attention(layers, ref):
-    """Force the model's attention through ``flash_attention_ref`` (on
-    the card) for the duration."""
+def patched_attention(layers, wrap):
+    """Run the model's attention as ``wrap(attention)`` for the
+    duration."""
     saved = layers.flash_attention
-    layers.flash_attention = (
-        lambda q, k, v, **kw: ref.flash_attention_ref(q, k, v, **kw))
+    layers.flash_attention = wrap(saved)
     try:
         yield
     finally:
         layers.flash_attention = saved
+
+
+def watching(seen):
+    """A ``patched_attention`` wrap that passes every call on unchanged
+    and first hands its inputs to ``seen(q, k, v, kw)``."""
+    def wrap(attention):
+        def run(q, k, v, **kw):
+            seen(q, k, v, kw)
+            return attention(q, k, v, **kw)
+        return run
+    return wrap
+
+
+def without_window(attention):
+    """A planted fault: every local layer attends globally."""
+    return lambda q, k, v, **kw: attention(q, k, v, **{**kw, "window": None})
+
+
+def profile_serve(torch, layers, fn, args):
+    """``profile_write`` of one serve run, plus the attention calls it
+    made and the sum of their bounds (``attention_bound``), beside the
+    flash kernel's device time."""
+    calls = []
+    with patched_attention(layers, watching(
+            lambda q, k, v, kw: calls.append(attention_bound(
+                torch, q.shape, k.shape, q.element_size(), kw["causal"],
+                kw["window"], kw["q_offset"], kw.get("kv_len"))[0]))):
+        rec = profile_write(torch, fn, args)
+    return {**rec, "flash_calls": len(calls), "flash_bound_ms": sum(calls)}
 
 
 def logit_stats(torch, got, want, chunk=512):
@@ -919,6 +999,32 @@ def logit_stats(torch, got, want, chunk=512):
         same += int((g.argmax(-1) == w.argmax(-1)).sum())
     return {"rel_l2": math.sqrt(num / den), "max_abs_diff": diff,
             "top1_equal_share": same / got.shape[0]}
+
+
+def layer_checks(ops, ref, captured) -> None:
+    """The attention of the first local and global layer of a prefill
+    (``captured``: kind -> the call's q, k, v and keywords) through the
+    kernel and the plain version, held to the kernel phase's bf16
+    limits; the planted faults must fail them."""
+    checks = {}
+    tol = ATTN_TOL["bfloat16"]
+    for kind, (q, k, v, kw) in sorted(captured.items()):
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        got = ops.fused_attention(q, k, v, **kw)
+        planted = {f: attn_err(fn(), want, tol) for f, fn in
+                   planted_faults(ops, q, k, v, got, kw).items()}
+        checks[kind] = {
+            **attn_err(got, want, tol), "window": kw["window"],
+            "planted_rel_l2": {f: c["rel_l2"] for f, c in planted.items()},
+            "planted_within": {f: c["within"] for f, c in planted.items()}}
+    emit({"phase": "serve_layer_checks", "tol": tol,
+          "tol_rel_l2": ATTN_REL_L2, **checks})
+    require(set(checks) == {"global", "local"},
+            f"serve: captured layers {sorted(checks)}")
+    for kind, c in checks.items():
+        require(c["within"], f"serve {kind} layer attention: {c}")
+        require(not any(c["planted_within"].values()),
+                f"serve {kind} layer: a planted fault passes: {c}")
 
 
 def phase_serve(torch, dev):
@@ -940,9 +1046,14 @@ def phase_serve(torch, dev):
     relative L2 distance of ``SERVE_REL_L2``: bf16 activations rounded
     in other orders across 42 layers (the CPU tests hold the algorithm
     in f32 at 2e-3). The share of equal greedy tokens is printed, not
-    required."""
+    required. The same distance for a forward whose local layers attend
+    globally (a planted fault) must exceed ``SERVE_REL_L2``. Per layer, the
+    attention inputs of the first local and the first global layer of
+    the long prefill go through the kernel and the plain version and
+    are held to the kernel phase's limits, which planted faults must
+    fail."""
     from repro_torch import configs, kernels
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve
     from repro_torch.models import layers
     from repro_torch.models import transformer as T
@@ -1011,7 +1122,17 @@ def phase_serve(torch, dev):
     plen_b = LONG_PROMPT
     prompt = torch.randint(0, cfg.vocab, (1, plen_b), generator=gen,
                            device=dev, dtype=torch.int32)
-    T.prefill(params, cfg, {"tokens": prompt})            # warm-up
+    captured = {}        # the first local and global layer's inputs
+    with patched_attention(layers, watching(
+            lambda q, k, v, kw: captured.setdefault(
+                "global" if kw["window"] is None else "local",
+                (q, k, v, kw)))):
+        T.prefill(params, cfg, {"tokens": prompt})        # warm-up
+
+    # before the counted run, so that no layer's inputs are held in it
+    layer_checks(ops, ref, captured)
+    del captured
+
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1049,13 +1170,19 @@ def phase_serve(torch, dev):
     require(dec_vs_fwd["rel_l2"] <= SERVE_REL_L2,
             f"decode vs forward logits: {dec_vs_fwd}")
     before = kernels.launch_counts()["flash_attention_fused"]
-    with plain_attention(layers, ref):
+    with patched_attention(layers, lambda _: ref.flash_attention_ref):
         fwd_plain, _ = T.forward(params, cfg, {"tokens": full})
         prefill_plain, _ = T.prefill(params, cfg, {"tokens": prompt})
     require(kernels.launch_counts()["flash_attention_fused"] == before,
             "the plain-attention runs launched the kernel")
     kern_vs_plain = logit_stats(torch, fwd, fwd_plain)
-    del fwd, fwd_plain
+    del fwd_plain
+    with patched_attention(layers, without_window):
+        fwd_planted, _ = T.forward(params, cfg, {"tokens": full})
+    planted_vs_kern = logit_stats(torch, fwd_planted, fwd)
+    del fwd, fwd_planted
+    require(planted_vs_kern["rel_l2"] > SERVE_REL_L2,
+            f"a forward with the window dropped passes: {planted_vs_kern}")
     prefill_vs_plain = logit_stats(torch, logits_p[:, None],
                                    prefill_plain[:, None])
     for what, st in (("forward", kern_vs_plain),
@@ -1066,21 +1193,24 @@ def phase_serve(torch, dev):
           "tol_rel_l2": SERVE_REL_L2,
           "decode_vs_forward": dec_vs_fwd,
           "forward_kernel_vs_plain": kern_vs_plain,
-          "prefill_kernel_vs_plain": prefill_vs_plain, "ok": True})
+          "prefill_kernel_vs_plain": prefill_vs_plain,
+          "planted_window_dropped_vs_kernel": planted_vs_kern,
+          "ok": True})
     torch.cuda.empty_cache()
 
     # profiles (after every count is read): where the time goes
     emit({"phase": "profile", "method": "serve_generate",
-          **profile_write(torch, serve.generate,
+          **profile_serve(torch, layers, serve.generate,
                           (params, cfg, prompts, gen_len))})
     emit({"phase": "profile", "method": "serve_prefill_8192",
-          **profile_write(torch, T.prefill,
+          **profile_serve(torch, layers, T.prefill,
                           (params, cfg, {"tokens": prompt}))})
     _, state = T.prefill(params, cfg, {"tokens": prompt})
     state = serve._grow_caches(state, gen_len)
     tok = picked[0]
     emit({"phase": "profile", "method": "serve_decode_16_at_8192",
-          **profile_write(torch, decode_loop, (state, tok, gen_len))})
+          **profile_serve(torch, layers, decode_loop,
+                          (state, tok, gen_len))})
     del state, params
     torch.cuda.empty_cache()
     return {k: sum(c[k] for c in launches.values())
@@ -1132,7 +1262,9 @@ def main() -> int:
 
     emit({"phase": "kernel_status",
           "table": [{"name": n, "replaces": r, "status": s,
-                     "launches": launches.get(n, 0)} for n, r, s in TABLE]})
+                     "launches": launches.get(n, 0),
+                     **({"note": NOTES[n]} if n in NOTES else {})}
+                    for n, r, s in TABLE]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

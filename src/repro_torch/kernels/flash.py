@@ -9,10 +9,19 @@ The TPU kernel keeps one (batch x kv head, q block) program's logits and
 probabilities in VMEM; the Hopper kernel (``csrc/flash.cu``) keeps them
 in shared memory and registers of one CTA, with the g query heads of a
 kv head in the same CTA, and walks only the key tiles its rows can see.
-Like the attention the reference's model runs (``layers.flash_attention``
-at its default), it rounds probabilities and values to bf16 for the
-p.v product and sums in f32.
-On a CPU tensor the wrapper runs the plain version,
+It ports the semantics of the attention the reference's model runs
+(``layers.flash_attention`` at its default), which the kernel stands in
+for on the card: probabilities and values are rounded to bf16 for the
+p.v product, summed in f32, for f32 inputs too. The Pallas kernel keeps
+p.v in f32, so for f32 inputs this kernel is less precise than the one
+it replaces (the difference is within the reference's 5e-3 f32
+tolerance of the two).
+
+``flash_attention_fused`` keeps the reference's contract (Sq and Skv
+divide by the block sizes); the Hopper kernel's own tiles take ragged
+edges, so ``flash_attention_ragged`` is the same call on any Sq and Skv,
+and the model's decode reads its cache in place through it. On a CPU
+tensor both run the plain version,
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
 from __future__ import annotations
@@ -42,9 +51,26 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor,
     """Fused attention. q: ``[B, Sq, Hq, hd]``; k, v: ``[B, Skv, Hkv, hd]``.
 
     Sq must divide by block_q and Skv by block_kv, as in the reference
-    (``ops.fused_attention`` pads). ``q_offset`` and ``kv_len`` are plain
-    ints passed to the kernel at launch. CUDA tensors launch the kernel
-    (counted in ``flash_attention_fused.launches``); CPU tensors run
+    (``ops.fused_attention`` takes any shape). Otherwise
+    :func:`flash_attention_ragged`.
+    """
+    if q.shape[1] % block_q or k.shape[1] % block_kv:
+        raise ValueError("pad Sq/Skv to the block sizes")
+    return flash_attention_ragged(q, k, v, causal=causal, window=window,
+                                  logit_cap=logit_cap, q_offset=q_offset,
+                                  kv_len=kv_len)
+
+
+def flash_attention_ragged(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True,
+                           window: int | None = None,
+                           logit_cap: float | None = None,
+                           q_offset: int = 0,
+                           kv_len: int | None = None) -> torch.Tensor:
+    """The fused attention on any Sq and Skv, keys bounded by ``kv_len``
+    (None: Skv). ``q_offset`` and ``kv_len`` are plain ints passed to the
+    kernel at launch. CUDA tensors launch the kernel (counted in
+    ``flash_attention_fused.launches``); CPU tensors run
     ``flash_attention_ref``.
     """
     b, sq, hq, hd = q.shape
@@ -54,9 +80,7 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor,
                          f"v {tuple(v.shape)} mismatch")
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
-    if sq % block_q or skv % block_kv:
-        raise ValueError("pad Sq/Skv to the block sizes")
-    kv_len = skv if kv_len is None else int(kv_len)
+    kv_len = skv if kv_len is None else min(int(kv_len), skv)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    logit_cap=logit_cap, q_offset=q_offset,

@@ -164,29 +164,17 @@ def rle_zero_skip_decode(parts) -> torch.Tensor:
     return out[:, :cap].reshape(*lead, cap)
 
 
-def _pad_seq(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """Pad axis 1 of ``[B, S, H, hd]`` with ``pad`` zero rows."""
-    if pad == 0:
-        return x.contiguous()
-    return F.pad(x, (0, 0, 0, 0, 0, pad))
-
-
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     logit_cap: float | None = None, q_offset: int = 0,
                     kv_len: int | None = None) -> torch.Tensor:
-    """Padding wrapper over ``flash.flash_attention_fused``: accepts any
-    Sq/Skv, pads them to the block sizes, bounds the real keys with
+    """Any-shape wrapper over the fused attention, the model's attention
+    on the card. The reference's wrapper pads Sq/Skv to the Pallas block
+    sizes; the Hopper kernel's tiles take ragged edges, so this one calls
+    ``flash.flash_attention_ragged`` on the tensors as they are (a decode
+    step reads its cache in place) and bounds the real keys with
     ``kv_len`` (``Skv``, or the caller's smaller valid prefix, as in a
-    decode cache; padded keys never enter the softmax), slices back."""
-    sq, skv = q.shape[1], k.shape[1]
-    bq = min(flash.BLOCK_Q, max(64, 1 << (sq - 1).bit_length()))
-    bkv = min(flash.BLOCK_KV, max(64, 1 << (skv - 1).bit_length()))
-    pq = -(-sq // bq) * bq - sq
-    pk = -(-skv // bkv) * bkv - skv
-    out = flash.flash_attention_fused(
-        _pad_seq(q, pq), _pad_seq(k, pk), _pad_seq(v, pk), causal=causal,
-        window=window, logit_cap=logit_cap, q_offset=q_offset,
-        kv_len=skv if kv_len is None else min(int(kv_len), skv),
-        block_q=bq, block_kv=bkv)
-    return out[:, :sq]
+    decode cache)."""
+    return flash.flash_attention_ragged(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+        window=window, logit_cap=logit_cap, q_offset=q_offset, kv_len=kv_len)

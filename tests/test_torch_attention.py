@@ -115,14 +115,29 @@ def test_block_divisibility_guard():
 
 @pytest.mark.parametrize("causal,off", [(True, 100), (False, 0)])
 def test_ops_fused_attention_padded_shapes(causal, off):
-    """Odd Sq/Skv padded to blocks; padded keys are bounded by kv_len
-    and never enter the softmax."""
+    """Odd Sq/Skv, which the reference's wrapper pads to blocks and the
+    port's takes as they are."""
     q, k, v = mk(1, 200, 300, 4, 2, 64)
     kw = dict(causal=causal, window=None, logit_cap=None, q_offset=off)
     got = t_ops.fused_attention(_t(q), _t(k), _t(v), causal=causal,
                                 q_offset=off)
     assert tuple(got.shape) == q.shape
     _close(got, _want(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("kv_len", [None, 150, 400])
+def test_ragged_entry_takes_any_shape(kv_len):
+    """``flash_attention_ragged`` is ``flash_attention_fused`` without
+    the block condition: odd Sq/Skv, keys bounded by kv_len (one past
+    Skv means Skv)."""
+    q, k, v = mk(2, 77, 201, 6, 2, 48, seed=5)
+    kw = dict(causal=True, window=40, logit_cap=30.0, q_offset=124)
+    want = _want(q, k, v, kv_len=kv_len, **kw)
+    _close(t_flash.flash_attention_ragged(_t(q), _t(k), _t(v),
+                                          kv_len=kv_len, **kw), want)
+    with pytest.raises(ValueError):
+        t_flash.flash_attention_fused(_t(q), _t(k), _t(v), kv_len=kv_len,
+                                      **kw)
 
 
 @pytest.mark.parametrize("window,cap", [(None, None), (8, 50.0)])

@@ -301,6 +301,19 @@ def test_cuda_pack_equals_plain(cuda, dtype, n, cap, base):
     assert got.dtype == dtype and torch.equal(got, want)
 
 
+def _attention_close(got, want):
+    """Every element within atol = rtol = 5e-3 (f32, the reference's
+    kernel test tolerance) or 8e-3 (bf16: one bf16 ulp, 2^-7 relative),
+    and a relative L2 distance of at most 1e-2: attention outputs
+    average many values, so an absolute limit near their size would let
+    a wrong kernel pass."""
+    tol = 5e-3 if want.dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    g, w = got.float(), want.float()
+    assert float((g - w).norm() / w.norm()) <= 1e-2
+
+
 # (b, sq, skv, hq, hkv, hd, causal, window, cap, q_offset, kv_len)
 FLASH_CASES = [
     (1, 256, 512, 4, 4, 64, True, None, None, 256, None),     # MHA
@@ -320,9 +333,8 @@ FLASH_CASES = [
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_cuda_flash_attention_equals_plain(cuda, dtype, case):
     """The flash kernel against flash_attention_ref on the same card
-    inputs: 5e-3 for f32, 5e-2 for bf16 (the reference's kernel test
-    tolerances; both round probabilities and values to bf16 for the PV
-    product, and sum in other orders)."""
+    inputs (both round probabilities and values to bf16 for the PV
+    product, and sum in other orders): ``_attention_close``."""
     from repro_torch.kernels import flash as t_flash
     b, sq, skv, hq, hkv, hd, causal, window, cap, q_offset, kv_len = case
     gen = torch.Generator(device=cuda)
@@ -338,21 +350,18 @@ def test_cuda_flash_attention_equals_plain(cuda, dtype, case):
     assert t_flash.flash_attention_fused.launches == before + 1
     want = t_ref.flash_attention_ref(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == q.shape
-    tol = 5e-3 if dtype == torch.float32 else 5e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                               atol=tol)
+    _attention_close(got, want)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_fused_attention_pads_decode_and_odd_shapes(cuda, dtype):
-    """ops.fused_attention on the card: a decode step (Sq 1 padded to 64,
-    kv_len = pos + 1 into a longer cache, the window) and odd Sq/Skv,
-    against the plain version on the unpadded inputs."""
+    """ops.fused_attention on the card: a decode step (Sq 1, kv_len =
+    pos + 1 into a longer cache, the window) and odd Sq/Skv, which the
+    kernel takes as they are, against the plain version."""
     from repro_torch.kernels import ops as t_ops
     gen = torch.Generator(device=cuda)
     gen.manual_seed(5)
-    tol = 5e-3 if dtype == torch.float32 else 5e-2
     for (b, sq, skv, causal, window, q_offset, kv_len) in (
             (4, 1, 300, False, 128, 200, 201),
             (1, 200, 300, True, None, 100, None),
@@ -365,8 +374,26 @@ def test_cuda_fused_attention_pads_decode_and_odd_shapes(cuda, dtype):
         got = t_ops.fused_attention(q, k, v, **kw)
         want = t_ref.flash_attention_ref(q, k, v, **kw)
         assert got.shape == q.shape
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol)
+        _attention_close(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_reads_the_cache_in_place(cuda):
+    """A decode step's attention allocates its output and nothing the
+    size of the cache: no padded copy of k and v."""
+    from repro_torch.kernels import ops as t_ops
+    q = torch.randn((1, 1, 16, 256), device=cuda).bfloat16()
+    k, v = (torch.randn((1, 8208, 8, 256), device=cuda).bfloat16()
+            for _ in range(2))
+    t_ops.fused_attention(q, k, v, causal=False, window=4096,
+                          logit_cap=50.0, q_offset=8000, kv_len=8001)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    t_ops.fused_attention(q, k, v, causal=False, window=4096,
+                          logit_cap=50.0, q_offset=8000, kv_len=8001)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda) - before < k.nbytes // 8
 
 
 @pytest.mark.cuda

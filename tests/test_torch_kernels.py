@@ -453,6 +453,8 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
                  lambda: t_pack.pack(x[0], x[0], x[0], x[0], 0, 4096),
                  lambda: t_flash.flash_attention_fused(
                      *(torch.zeros((1, 64, 2, 16), device="meta"),) * 3,
-                     block_q=64, block_kv=64)):
+                     block_q=64, block_kv=64),
+                 lambda: t_flash.flash_attention_ragged(
+                     *(torch.zeros((1, 5, 2, 16), device="meta"),) * 3)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
