@@ -8,8 +8,9 @@ holds each kernel against its plain PyTorch version at the shapes the
 main path gives it (exact equality for the I/O kernels, which move
 words and do no arithmetic on them; for attention every element within
 5e-3 (f32) or 8e-3 (bf16, one bf16 ulp) and a relative L2 distance of at
-most 1e-2, with planted faults shown to fail that limit), checks small writes and reads with every slow-hop codec on
-the card against the CPU, then drives the main paths:
+most 1e-2, with planted faults shown to fail that limit), checks small
+writes and reads with every slow-hop codec on the card against the CPU,
+then drives the main paths:
 
 * on the BTIO deployment (16 nodes x 64 ranks, one global aggregator per
   node, a 512 MiB file, 32 rounds of 1 MiB windows) with
@@ -24,7 +25,9 @@ the card against the CPU, then drives the main paths:
   weights from a seeded generator) through ``launch.serve.generate``
   and the model's prefill and decode: batch 4 x 32 prompt tokens x 16
   new tokens, and one 8192-token prompt followed by 16 decode steps,
-  every attention through the flash kernel; its logits are checked
+  every attention through the flash kernel (the prefill on its
+  ``tc_prefill`` route, the decode steps on ``split_decode``, which the
+  run requires); its logits are checked
   against ``forward`` and against attention forced through the plain
   version, and the attention of its first local and first global layer
   against the plain version, where planted faults must fail.
@@ -32,7 +35,9 @@ the card against the CPU, then drives the main paths:
 Every phase prints one JSON line; any failed check raises, and the run
 exits non-zero. The line before the last lists every kernel with its
 launches on the main paths, its time, its bound and the plain and library
-times; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+times (for attention with the softcap, the library is
+``flex_attention``, compiled by ``torch.compile`` with its caches under
+``build/``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
 non-zero and prints no result.
 """
@@ -41,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -50,6 +56,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 REPS = 10                     # timed runs per kernel measurement
+HOLD_CYCLES = 400_000         # about 0.2 ms of device clock: see time_ms
 FP32_OPS_PER_S = 67e12        # H100 SXM non-tensor float32 rate; no
                               # int32 row in the table, used for compares
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
@@ -87,6 +94,10 @@ TABLE = (   # every pallas_call of the reference, by def line
     ("pack", "src/repro/kernels/pack.py:56", "ported"),
     ("flash_attention_fused", "src/repro/kernels/flash.py:92", "ported"),
 )
+FLASH_SOURCES = ["src/repro_torch/kernels/csrc/flash.cu",
+                 "src/repro_torch/kernels/csrc/flash_decode.cu",
+                 "src/repro_torch/kernels/csrc/flash_tiles.cuh",
+                 "src/repro_torch/kernels/csrc/flash_wgmma.cuh"]
 NOTES = {"flash_attention_fused":
          "ports the semantics of the model's attention "
          "(src/repro/models/layers.py:112 at its default): p and v rounded "
@@ -111,7 +122,10 @@ def time_ms(torch, fn, reps: int, flush=None) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs, after two
     warm-up runs. Zeroing ``flush`` (larger than the 50 MB L2) before
     each run makes ``fn`` find its inputs in device memory, as the main
-    path does."""
+    path does. A device-side wait of ``HOLD_CYCLES`` before the first
+    event keeps the card busy while the host enqueues ``fn``, so the
+    events span the device's work and not the host's launch work (which
+    outlasts a call of tens of microseconds)."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -119,6 +133,7 @@ def time_ms(torch, fn, reps: int, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -413,16 +428,22 @@ def attention_bound(torch, q_shape, k_shape, itemsize, causal, window,
             else "bytes", pairs, keys)
 
 
-# (name, b, sq, skv, causal, window, q_offset, kv_len): gemma2-9b's
+# (name, b, sq, skv, causal, window, q_offset, kv_len, cap): gemma2-9b's
 # attention (16 query heads over 8 kv heads of 256, softcap 50) at the
 # serve phase's shapes: a global and a local prefill layer of 8192
 # tokens, a decode layer at the last of 16 steps after that prefill
-# (cache 8192 + 16), and an odd shape that needs padding on both axes
+# (cache 8192 + 16) at batch 4 (local) and at batch 1 (global: 672 of
+# the serve phase's launches), an odd shape that needs padding on both
+# axes, and the global prefill without the softcap (the attention of
+# qwen1.5, yi and glm4), where F.scaled_dot_product_attention computes
+# the same function
 FLASH_CASES = (
-    ("prefill_global", 1, 8192, 8192, True, None, 0, None),
-    ("prefill_window", 1, 8192, 8192, True, 4096, 0, None),
-    ("decode", 4, 1, 8208, False, 4096, 8207, 8208),
-    ("odd_padded", 1, 1000, 1300, True, 4096, 300, None),
+    ("prefill_global", 1, 8192, 8192, True, None, 0, None, 50.0),
+    ("prefill_window", 1, 8192, 8192, True, 4096, 0, None, 50.0),
+    ("decode", 4, 1, 8208, False, 4096, 8207, 8208, 50.0),
+    ("decode_global_b1", 1, 1, 8208, False, None, 8207, 8208, 50.0),
+    ("odd_padded", 1, 1000, 1300, True, 4096, 300, None, 50.0),
+    ("prefill_global_nocap", 1, 8192, 8192, True, None, 0, None, None),
 )
 
 
@@ -448,6 +469,73 @@ def _sdpa_no_softcap(torch, q, k, v, causal, window, q_offset, kv_len):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
+FLEX = ("torch.nn.attention.flex_attention.flex_attention (torch.compile; "
+        "score_mod: the softcap; block mask: causal, window, kv_len; "
+        "enable_gqa)")
+F32_LIBRARY = ("none (f32: the kernel rounds p and v to bf16 for p.v; SDPA "
+               "and flex_attention keep them in f32)")
+
+
+def _flex_same_fn(torch, q, k, v, causal, window, q_offset, kv_len, cap):
+    """``flex_attention`` on the same bf16 inputs, compiled: the same
+    function as the kernel. A ``score_mod`` applies the softcap to the
+    scaled logit and a block mask the causal, window and kv_len masks;
+    its kernel rounds p to bf16 for p.v and sums l from the unrounded
+    p, as the kernel does. Timed and checked here only; the port never
+    calls it. Returns a function giving ``[B, Sq, Hq, hd]``."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                    flex_attention)
+    sq, skv, hd = q.shape[1], k.shape[1], q.shape[3]
+    kv_len = skv if kv_len is None else kv_len
+
+    def mask_mod(b, h, qi, ki):
+        qp = qi + q_offset
+        ok = ki < kv_len
+        if causal:
+            ok = ok & (ki <= qp)
+        if window is not None:
+            ok = ok & (qp - ki < window)
+        return ok
+
+    def softcap(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    block_mask = create_block_mask(mask_mod, None, None, sq, skv,
+                                   device=q.device)
+    fn = torch.compile(flex_attention)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return lambda: fn(qt, kt, vt, score_mod=None if cap is None else softcap,
+                      block_mask=block_mask, scale=1.0 / math.sqrt(hd),
+                      enable_gqa=True).transpose(1, 2)
+
+
+def flex_library(torch, q, k, v, kw, want, tol, reps, flush) -> dict:
+    """``library_ms`` of a bf16 softcap case: compiled ``flex_attention``
+    held to the plain version at the kernel's limits and timed. Its time
+    is the case's ``library_ms`` only where it passes that check; where
+    it does not compile or disagrees the reason is kept and
+    ``library_ms`` is null."""
+    import torch._dynamo
+    cfg = torch._dynamo.config   # one compile per case: room for all
+    setattr(cfg, "recompile_limit" if hasattr(cfg, "recompile_limit")
+            else "cache_size_limit", 64)
+    try:
+        fn = _flex_same_fn(torch, q, k, v, kw["causal"], kw["window"],
+                           kw["q_offset"], kw["kv_len"], kw["logit_cap"])
+        check = attn_err(fn(), want, tol)
+        ms = time_ms(torch, fn, reps, flush)
+    except Exception as exc:   # a measurement of the library, not the port
+        return {"library_ms": None,
+                "library": f"{FLEX}: failed: {type(exc).__name__}: "
+                           f"{str(exc)[:300]}"}
+    rec = {"flex_ms": ms, "flex_max_abs_err": check["max_abs_err"],
+           "flex_rel_l2": check["rel_l2"]}
+    if check["within"]:
+        return {**rec, "library_ms": ms, "library": FLEX}
+    return {**rec, "library_ms": None,
+            "library": f"{FLEX}: outside the kernel's limits"}
+
+
 def planted_faults(ops, q, k, v, got, kw):
     """Wrong attentions at this case's shapes, which the check must
     fail: the kernel's output halved, and the kernel run with a mask
@@ -470,35 +558,68 @@ def planted_faults(ops, q, k, v, got, kw):
 def phase_flash(torch, dev, reps):
     """``flash_attention_fused`` against ``flash_attention_ref`` on the
     card, bf16 and f32, at the serve phase's shapes, through
-    ``ops.fused_attention`` as the model calls it. Each case also holds
-    planted faults to the same limit and requires that they fail it."""
-    from repro_torch.kernels import ops, ref
+    ``ops.fused_attention`` as the model calls it; each line names the
+    route the call launched (``flash._route``, checked against
+    ``launches_by_route``). Each case also holds planted faults to the
+    same limit and requires that they fail it. ``library_ms`` is the
+    same function's: SDPA for the bf16 case without the softcap,
+    compiled ``flex_attention`` for the bf16 softcap cases, none for f32
+    (both libraries keep p.v in f32). Returns the bf16 global prefill's
+    line, with the case without the softcap (kernel and SDPA) beside
+    it."""
+    from repro_torch.kernels import flash, ops, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     flush = torch.empty(1 << 25, dtype=torch.int32, device=dev)
-    hq, hkv, hd, cap = 16, 8, 256, 50.0
-    first = None
+    hq, hkv, hd = 16, 8, 256
+    recs = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         tol = ATTN_TOL[dname]
-        for name, b, sq, skv, causal, window, q_offset, kv_len in FLASH_CASES:
+        for (name, b, sq, skv, causal, window, q_offset, kv_len,
+             cap) in FLASH_CASES:
             q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
                        for s in ((b, sq, hq, hd), (b, skv, hkv, hd),
                                  (b, skv, hkv, hd)))
             kw = dict(causal=causal, window=window, logit_cap=cap,
                       q_offset=q_offset, kv_len=kv_len)
+            route = flash._route(b, sq, hq, hkv, hd, dtype)
+            by_route = dict(flash.flash_attention_fused.launches_by_route)
             got = ops.fused_attention(q, k, v, **kw)
+            by_route[route] += 1
+            require(flash.flash_attention_fused.launches_by_route
+                    == by_route, f"flash {name} {dname}: launched "
+                    f"{flash.flash_attention_fused.launches_by_route}, "
+                    f"not one {route}")
             want = ref.flash_attention_ref(q, k, v, **kw)
             check = attn_err(got, want, tol)
             planted = {}
             for fault, fn in planted_faults(ops, q, k, v, got, kw).items():
                 planted[fault] = attn_err(fn(), want, tol)
-            del got, want
+            del got
+            lib = {"library_ms": None, "library": F32_LIBRARY}
+            if dtype == torch.bfloat16 and cap is not None:
+                lib = flex_library(torch, q, k, v, kw, want, tol, reps,
+                                   flush)
+            del want
             kv_eff = skv if kv_len is None else kv_len
             bound_ms, bound_by, pairs, keys = attention_bound(
                 torch, q.shape, k.shape, q.element_size(), causal, window,
                 q_offset, kv_len)
-            rec = {"case": name, "dtype": dname, "q": list(q.shape),
+            # SDPA's same function: no softcap, a plain causal mask, and
+            # bf16 (in f32 it keeps p.v in f32; the kernel rounds to bf16)
+            same_fn = cap is None and causal and window is None \
+                and q_offset == 0 and kv_eff == skv == sq \
+                and dtype == torch.bfloat16
+            sdpa_ms = time_ms(torch, _sdpa_no_softcap(
+                torch, q, k, v, causal, window, q_offset, kv_len), reps,
+                flush)
+            if same_fn:
+                lib = {"library_ms": sdpa_ms,
+                       "library": "F.scaled_dot_product_attention "
+                                  "(is_causal=True, enable_gqa=True)"}
+            rec = {"case": name, "dtype": dname, "route": route,
+                   "q": list(q.shape),
                    "kv": list(k.shape), "causal": causal, "window": window,
                    "q_offset": q_offset, "kv_len": kv_eff,
                    "logit_cap": cap, "max_abs_err": check["max_abs_err"],
@@ -516,15 +637,11 @@ def phase_flash(torch, dev, reps):
                    "plain_ms": time_ms(
                        torch, lambda: ref.flash_attention_ref(q, k, v, **kw),
                        max(2, reps // 4), flush),
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": None,
-                   "library": "none (softcap)",
-                   "sdpa_ms_no_softcap": time_ms(
-                       torch, _sdpa_no_softcap(torch, q, k, v, causal,
-                                               window, q_offset, kv_len),
-                       reps, flush),
+                   "bound_ms": bound_ms, "bound_by": bound_by, **lib,
+                   "sdpa_ms_no_softcap": sdpa_ms,
                    "sdpa_note": "F.scaled_dot_product_attention without "
-                                "the softcap: not the same function"}
+                                "the softcap" + ("" if same_fn else
+                                                 ": not the same function")}
             rec["achieved_tflops"] = 4 * hd * pairs / rec["ms"] / 1e9
             emit({"phase": "kernel", "kernel": "flash_attention_fused",
                   **rec})
@@ -532,11 +649,14 @@ def phase_flash(torch, dev, reps):
             for fault, c in planted.items():
                 require(not c["within"], f"flash {name} {dname}: the "
                         f"planted fault {fault} passes the check: {c}")
-            first = first or rec
+            recs[name, dname] = rec
             del q, k, v
             torch.cuda.empty_cache()
     del flush
-    return first
+    nocap = recs["prefill_global_nocap", "bfloat16"]
+    return {**recs["prefill_global", "bfloat16"],
+            "nocap_case": {k: nocap[k] for k in (
+                "case", "ms", "bound_ms", "library_ms", "library")}}
 
 
 def phase_pack(torch, dev, reps):
@@ -719,7 +839,9 @@ STEPS = {"repro_torch.core.rounds": ("_compact_active", "repack_sorted",
                                      "rle_zero_skip_decode")}
 PORT_KERNELS = ("sort_rows_kernel", "coalesce_rows_kernel",
                 "pack_tiles_kernel", "zero_skip_encode_kernel",
-                "zero_skip_decode_kernel", "flash_attention_kernel")
+                "zero_skip_decode_kernel", "flash_attention_kernel",
+                "flash_tc_prefill_kernel", "flash_split_decode_kernel",
+                "flash_split_merge_kernel")
 
 
 @contextlib.contextmanager
@@ -973,14 +1095,20 @@ def without_window(attention):
 def profile_serve(torch, layers, fn, args):
     """``profile_write`` of one serve run, plus the attention calls it
     made and the sum of their bounds (``attention_bound``), beside the
-    flash kernel's device time."""
+    flash kernel's device time, and the run's flash launches by
+    route."""
+    from repro_torch.kernels import flash
     calls = []
+    before = dict(flash.flash_attention_fused.launches_by_route)
     with patched_attention(layers, watching(
             lambda q, k, v, kw: calls.append(attention_bound(
                 torch, q.shape, k.shape, q.element_size(), kw["causal"],
                 kw["window"], kw["q_offset"], kw.get("kv_len"))[0]))):
         rec = profile_write(torch, fn, args)
-    return {**rec, "flash_calls": len(calls), "flash_bound_ms": sum(calls)}
+    by_route = {r: n - before[r] for r, n in
+                flash.flash_attention_fused.launches_by_route.items()}
+    return {**rec, "flash_calls": len(calls), "flash_bound_ms": sum(calls),
+            "flash_launches_by_route": by_route}
 
 
 def logit_stats(torch, got, want, chunk=512):
@@ -1053,7 +1181,7 @@ def phase_serve(torch, dev):
     are held to the kernel phase's limits, which planted faults must
     fail."""
     from repro_torch import configs, kernels
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash, ops, ref
     from repro_torch.launch import serve
     from repro_torch.models import layers
     from repro_torch.models import transformer as T
@@ -1091,6 +1219,7 @@ def phase_serve(torch, dev):
     out, gen_ms = synced(lambda: serve.generate(params, cfg, prompts,
                                                 gen_len))
     launches["generate"] = kernels.launch_counts()
+    routes_a = dict(flash.flash_attention_fused.launches_by_route)
     require(tuple(out.shape) == (batch, gen_len + 1)
             and bool(((out >= 0) & (out < cfg.vocab)).all()),
             f"generate: tokens {tuple(out.shape)} out of range")
@@ -1115,6 +1244,7 @@ def phase_serve(torch, dev):
           "peak_mem_bytes": peak_a, "launches": launches["generate"],
           "flash_launches_per_generate":
               launches["generate"]["flash_attention_fused"],
+          "flash_launches_by_route": routes_a,
           "sample": out[0, :8].tolist()})
     del state
 
@@ -1151,6 +1281,7 @@ def phase_serve(torch, dev):
         return state
     _, decode_b_ms = synced(lambda: decode_b(state))
     launches["long"] = kernels.launch_counts()
+    routes_b = dict(flash.flash_attention_fused.launches_by_route)
     peak_b = torch.cuda.max_memory_allocated(dev)
     del state
     torch.cuda.empty_cache()
@@ -1160,7 +1291,14 @@ def phase_serve(torch, dev):
           "prefill_tokens_per_s": plen_b / prefill_b_ms * 1e3,
           "decode_ms_per_step": decode_b_ms / gen_len,
           "decode_tokens_per_s": gen_len / decode_b_ms * 1e3,
-          "peak_mem_bytes": peak_b, "launches": launches["long"]})
+          "peak_mem_bytes": peak_b, "launches": launches["long"],
+          "flash_launches_by_route": routes_b})
+    # every prefill layer on the tensor cores, every decode layer split
+    per_run = {"tc_prefill": cfg.n_layers,
+               "split_decode": gen_len * cfg.n_layers, "scalar_f32": 0}
+    for run, got in (("generate", routes_a), ("long_prompt", routes_b)):
+        require(got == per_run, f"serve {run}: flash routes {got}, "
+                f"expected {per_run}")
 
     # checks: decode vs forward, kernel vs plain attention
     full = torch.cat([prompt, torch.stack(picked, dim=1)], dim=1)
@@ -1202,23 +1340,34 @@ def phase_serve(torch, dev):
     emit({"phase": "profile", "method": "serve_generate",
           **profile_serve(torch, layers, serve.generate,
                           (params, cfg, prompts, gen_len))})
-    emit({"phase": "profile", "method": "serve_prefill_8192",
-          **profile_serve(torch, layers, T.prefill,
-                          (params, cfg, {"tokens": prompt}))})
+    prof = profile_serve(torch, layers, T.prefill,
+                         (params, cfg, {"tokens": prompt}))
+    emit({"phase": "profile", "method": "serve_prefill_8192", **prof})
+    require(prof["flash_launches_by_route"]["tc_prefill"] == cfg.n_layers,
+            f"8192 prefill: {prof['flash_launches_by_route']}")
     _, state = T.prefill(params, cfg, {"tokens": prompt})
     state = serve._grow_caches(state, gen_len)
     tok = picked[0]
-    emit({"phase": "profile", "method": "serve_decode_16_at_8192",
-          **profile_serve(torch, layers, decode_loop,
-                          (state, tok, gen_len))})
+    prof = profile_serve(torch, layers, decode_loop, (state, tok, gen_len))
+    emit({"phase": "profile", "method": "serve_decode_16_at_8192", **prof})
+    require(prof["flash_launches_by_route"]["split_decode"]
+            == gen_len * cfg.n_layers,
+            f"decode at 8192: {prof['flash_launches_by_route']}")
     del state, params
     torch.cuda.empty_cache()
-    return {k: sum(c[k] for c in launches.values())
-            for k in kernels.launch_counts()}
+    return ({k: sum(c[k] for c in launches.values())
+             for k in kernels.launch_counts()},
+            {r: routes_a[r] + routes_b[r] for r in routes_a})
 
 
 def main() -> int:
     t_start = time.perf_counter()
+    # torch.compile (flex_attention's library time) keeps its caches in
+    # the checkout and compiles in this process
+    for var, val in (("TORCHINDUCTOR_CACHE_DIR", ROOT / "build" / "inductor"),
+                     ("TRITON_CACHE_DIR", ROOT / "build" / "triton"),
+                     ("TORCHINDUCTOR_COMPILE_THREADS", 1)):
+        os.environ.setdefault(var, str(val))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1255,8 +1404,15 @@ def main() -> int:
     phase_small(torch, dev)
     phase_small_codecs(torch, dev)
     launches = phase_main(torch, dev)
-    served = phase_serve(torch, dev)
+    served, served_routes = phase_serve(torch, dev)
     launches = {k: launches[k] + served[k] for k in launches}
+    flash_rec = measured["flash_attention_fused"]
+    extra = {"flash_attention_fused": {   # beyond the contract's keys
+        "sources": FLASH_SOURCES, "case": flash_rec["case"],
+        "kernel_route": flash_rec["route"],
+        "library": flash_rec["library"],
+        "nocap_case": flash_rec["nocap_case"],
+        "launches_by_route": served_routes}}
     require(served["flash_attention_fused"] > 0,
             "serve: flash_attention_fused never launched")
 
@@ -1271,7 +1427,8 @@ def main() -> int:
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+         **extra.get(name, {})}
         for name, rec in measured.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

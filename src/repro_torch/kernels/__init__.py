@@ -11,13 +11,15 @@
   (CUDA, the drain's tile kernel without sort and mask);
 * ``flash.flash_attention_fused`` — online-softmax GQA attention with
   causal, window, softcap and kv_len masks, the serving path's
-  attention (CUDA);
+  attention (CUDA, three routes: ``tc_prefill`` and ``split_decode`` for
+  bf16, ``scalar_f32``);
 * ``ref`` — the plain PyTorch versions the wrappers run on the CPU;
 * ``ops`` — padding, chunking and RequestList integration;
 * ``build`` — the nvcc build and ctypes loading, at first launch.
 
 Each wrapper counts the calls that launched its kernel in a plain
-integer attribute, ``<wrapper>.launches``.
+integer attribute, ``<wrapper>.launches``; the attention also counts
+them by route, in ``flash_attention_fused.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -41,3 +43,5 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        for route in getattr(k, "launches_by_route", ()):
+            k.launches_by_route[route] = 0

@@ -25,8 +25,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sort.cu", "coalesce_kernel.cu", "fused_round.cu",
-           "zero_skip.cu", "pack.cu", "flash.cu")
-HEADERS = ("common.cuh", "bitonic.cuh", "pack_tiles.cuh")
+           "zero_skip.cu", "pack.cu", "flash.cu", "flash_decode.cu")
+HEADERS = ("common.cuh", "bitonic.cuh", "pack_tiles.cuh", "flash_tiles.cuh",
+           "flash_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,8 +43,8 @@ _SIGNATURES = {
     "repro_zero_skip_encode": (_P, _P, _P, _I, _I, _I, _P),
     "repro_zero_skip_decode": (_P, _P, _P, _I, _I, _P),
     "repro_pack": (_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _P),
-    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                              _I, _I, _F, _I, _I, _I, _P),
+    "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _F, _I, _I, _F, _I, _I, _I, _I, _P),
 }
 
 

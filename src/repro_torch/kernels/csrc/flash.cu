@@ -1,7 +1,7 @@
-// flash_attention_fused for Hopper: replaces kernels/flash.py::
-// flash_attention_fused (_attn_kernel: one program per (batch x kv head,
-// q block), the g = Hq / Hkv query heads of a kv head together, K/V
-// streamed in blocks with the online softmax state m, l, acc in f32).
+// flash_attention_fused for Hopper: replaces src/repro/kernels/flash.py:92
+// (flash_attention_fused; _attn_kernel: one program per (batch x kv
+// head, q block), the g = Hq / Hkv query heads of a kv head together,
+// K/V streamed in blocks with the online softmax state m, l, acc in f32).
 //
 // Same function: logits = (q . k) * scale, then the tanh softcap, then
 // the masks kv_pos < kv_len, causal kv_pos <= q_offset + s, window
@@ -13,33 +13,62 @@
 // flash_attention at its default) does; the Pallas kernel keeps them in
 // f32. The row sums l take the unrounded probabilities, as there.
 //
-// Design. A CTA owns kRows (query, head) rows of one (batch, kv head):
-// row r is query s = r / g, head h = r % g, so the g heads that share a
-// kv head share every K/V tile, whatever g is (g = 7 included). The Q
-// rows and each tile of kKeys keys and values are converted to f32 into
-// shared memory (rows padded by one word: no bank conflicts). 256
-// threads form a 16 x 16 grid; thread (ty, tx) owns rows ty + 16 i
-// (i < 4) in both products: keys tx + 16 j of the logits and columns
-// tx + 16 c of the output, so each row's running max, sum and scale stay
-// in the registers of the 16 lanes of a half warp (shuffle reductions),
-// and only the probabilities pass through shared memory between the two
-// products. q_offset and kv_len are runtime arguments: a decode step
-// passes its cache position with no rebuild. The CTA walks only the key
-// tiles that some row of it can see: up to min(Skv, kv_len), up to its
-// last query's diagonal when causal, and from its first query's window
-// start. A row whose keys are all masked in a tile it does walk behaves
-// as in the reference (its weights there are wiped by the first real
-// key), so the result is the reference's for every row with a real key.
+// Rows. Every route flattens (query, head) pairs of one (batch, kv head)
+// into rows r = s * g + h, so the g heads that share a kv head share
+// every K/V tile, whatever g is (1, 2, 7, 16). q_offset and kv_len are
+// runtime arguments: a decode step passes its cache position with no
+// rebuild and no host synchronisation. The caller names the route; this
+// file launches it or returns an error, never another route.
 //
-// What bounds it: scalar f32 FMAs fed from shared memory. Each thread
-// does 16 FMAs per 8 shared loads in q.k and 64 per 20 in p.v, so the
-// shared-memory load rate, not device memory nor the FMA rate, is the
-// limit: far from the tensor cores' bf16 rate that the bound counts.
-// Tensor-core tiles (mma.sync / wgmma), TMA and splitting long caches
-// across CTAs for decode are later work.
+// Route tc_prefill (bf16, more than 16 rows per (batch, kv head)): what
+// bounds it on the H100 is operations (4 * hd flops per visible
+// (query, key) pair against a few bytes a pair). So both products run
+// on the tensor cores through wgmma (flash_wgmma.cuh), bf16 in and f32
+// accumulate: a CTA of two warpgroups owns 128 rows, 64 a warpgroup.
+// Its Q tile is loaded once as bf16; K and V stream as bf16 tiles of 64
+// keys through a two-stage cp.async ring (16 bytes a thread), so tile
+// t + 1 loads while tile t computes; all three live in shared memory in
+// the 128-byte swizzle that wgmma's descriptors read (where a row does
+// not start on 16 bytes, a head dim that is not a multiple of 8 or a
+// tensor off a 16-byte boundary, the same tiles are filled element by
+// element: the instantiation VEC = false). S = Q . K^T is
+// wgmma m64n64k16 with both operands in shared memory; the logits stay
+// in registers (scale, softcap, masks only on tiles that cross an edge,
+// online softmax with ex2), are rounded to bf16 in registers and feed
+// O += P . V as wgmma's register A operand against V in shared memory
+// (m64n{64,128,256}k16, V transposed by the descriptor). At hd 256: Q
+// 64 KB + 2 x (K + V) 128 KB of shared memory, 128 accumulator
+// registers a thread. The CTA walks only the key tiles some row of it
+// can see; a warpgroup skips a tile none of its rows sees; the heaviest
+// causal row blocks launch first. What is left: the two warpgroups run
+// in step (one barrier a tile), so the softmax does not overlap the
+// products; a producer warp with TMA and a ping-pong between the
+// warpgroups is the next step.
+//
+// Route split_decode (flash_decode.cu) takes bf16 calls of at most 16
+// rows per (batch, kv head); route scalar_f32 (below) takes f32.
+//
+// Route scalar_f32, the kernel of the first port, for f32 inputs only
+// (TF32 tensor cores would not hold the 5e-3 f32 check). A CTA owns 64
+// rows. The Q rows and each tile of kKeys keys and values are converted
+// to f32 into shared memory (rows padded by one word: no bank
+// conflicts). 256 threads form a 16 x 16 grid; thread (ty, tx) owns
+// rows ty + 16 i (i < 4) in both products: keys tx + 16 j of the logits
+// and columns tx + 16 c of the output, so each row's running max, sum
+// and scale stay in the registers of the 16 lanes of a half warp
+// (shuffle reductions), and only the probabilities pass through shared
+// memory between the two products. It walks the same key tiles. A row
+// whose keys are all masked in a tile it does walk behaves as in the
+// reference (its weights there are wiped by the first real key), so
+// every route's result is the reference's for every row with a real
+// key. What bounds it: scalar f32 FMAs fed from shared memory (16 FMAs
+// per 8 shared loads in q.k, 64 per 20 in p.v).
 #include <cuda_bf16.h>
+#include <limits.h>
 
 #include "common.cuh"
+#include "flash_tiles.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -47,18 +76,10 @@ constexpr int kRows = 64;      // (query, head) rows per CTA
 constexpr int kKeys = 64;      // keys per shared-memory tile
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kPerThread = 4;  // rows (and keys) per thread: 64 / 16
-constexpr float kNegInf = -1e30f;
+using repro_flash::kNegInf;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
 }
 
 constexpr size_t smem_bytes(int hdp) {
@@ -81,15 +102,21 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// q [B, Sq, Hq, hd], k/v [B, Skv, Hkv, hd], out like q; all contiguous.
-// HDP: hd rounded up to a power of two >= 16 (the padding is zero).
-template <typename T, int HDP>
+// f32 q [B, Sq, Hq, hd], k/v [B, Skv, Hkv, hd], out like q; all
+// contiguous. HDP: hd rounded up to a power of two >= 16 (the padding is
+// zero).
+template <int HDP>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           int sq, int skv, int hq, int hkv, int hd,
-                           float scale, int causal, int window, float cap,
-                           int q_offset, int kv_len) {
+    flash_attention_kernel(const repro_flash::Params prm) {
+  const float* __restrict__ q = static_cast<const float*>(prm.q);
+  const float* __restrict__ k = static_cast<const float*>(prm.k);
+  const float* __restrict__ v = static_cast<const float*>(prm.v);
+  float* __restrict__ out = static_cast<float*>(prm.out);
+  const int sq = prm.sq, skv = prm.skv, hq = prm.hq, hkv = prm.hkv,
+            hd = prm.hd;
+  const float scale = prm.scale, cap = prm.cap;
+  const int causal = prm.causal, window = prm.window,
+            q_offset = prm.q_offset, kv_len = prm.kv_len;
   constexpr int LD = HDP + 1;
   constexpr int kCols = HDP / 16;   // output columns per thread
   extern __shared__ float smem[];
@@ -113,8 +140,8 @@ __global__ void __launch_bounds__(kThreads)
     float x = 0.f;
     if (row < rows && d < hd) {
       const long long s = row / g, h = row % g;
-      x = to_f32(q[((static_cast<long long>(b) * sq + s) * hq +
-                    static_cast<long long>(kvh) * g + h) * hd + d]);
+      x = q[((static_cast<long long>(b) * sq + s) * hq +
+             static_cast<long long>(kvh) * g + h) * hd + d];
     }
     qs[r * LD + d] = x;
   }
@@ -146,8 +173,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const long long kv_row_stride = static_cast<long long>(hkv) * hd;
-  const T* kb = k + (static_cast<long long>(b) * skv * hkv + kvh) * hd;
-  const T* vb = v + (static_cast<long long>(b) * skv * hkv + kvh) * hd;
+  const float* kb = k + (static_cast<long long>(b) * skv * hkv + kvh) * hd;
+  const float* vb = v + (static_cast<long long>(b) * skv * hkv + kvh) * hd;
 
   for (int t = t_lo; t < t_hi; ++t) {
     const int key0 = t * kKeys;
@@ -157,8 +184,8 @@ __global__ void __launch_bounds__(kThreads)
       const int key = key0 + r;
       float kx = 0.f, vx = 0.f;
       if (key < skv && d < hd) {
-        kx = to_f32(kb[key * kv_row_stride + d]);
-        vx = round_bf16(to_f32(vb[key * kv_row_stride + d]));
+        kx = kb[key * kv_row_stride + d];
+        vx = round_bf16(vb[key * kv_row_stride + d]);
       }
       ks[r * LD + d] = kx;
       vs[r * LD + d] = vx;
@@ -236,47 +263,37 @@ __global__ void __launch_bounds__(kThreads)
     const long long row = row0 + ty + 16 * i;
     if (row >= rows) continue;
     const long long s = row / g, h = row % g;
-    T* o = out + ((static_cast<long long>(b) * sq + s) * hq +
-                  static_cast<long long>(kvh) * g + h) * hd;
+    float* o = out + ((static_cast<long long>(b) * sq + s) * hq +
+                      static_cast<long long>(kvh) * g + h) * hd;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int d = tx + 16 * c;
-      if (d < hd) store(o + d, acc[i][c] * inv);
+      if (d < hd) o[d] = acc[i][c] * inv;
     }
   }
 }
 
-template <typename T, int HDP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int b, int sq, int skv, int hq, int hkv, int hd,
-                   float scale, int causal, int window, float cap,
-                   int q_offset, int kv_len, cudaStream_t stream) {
-  auto* kernel = flash_attention_kernel<T, HDP>;
+template <int HDP>
+cudaError_t launch_scalar(const repro_flash::Params& p, cudaStream_t stream) {
+  auto* kernel = flash_attention_kernel<HDP>;
   const size_t bytes = smem_bytes(HDP);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  const long long rows = static_cast<long long>(sq) * (hq / hkv);
-  const dim3 grid(static_cast<unsigned>(b * hkv),
+  const long long rows = static_cast<long long>(p.sq) * (p.hq / p.hkv);
+  const dim3 grid(static_cast<unsigned>(p.b * p.hkv),
                   static_cast<unsigned>((rows + kRows - 1) / kRows));
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, hq, hkv, hd,
-      scale, causal, window, cap, q_offset, kv_len);
+  kernel<<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out,
-                      int b, int sq, int skv, int hq, int hkv, int hd,
-                      float scale, int causal, int window, float cap,
-                      int q_offset, int kv_len, cudaStream_t stream) {
-#define REPRO_FLASH_HD(HDP)                                                   \
-  if (hd <= HDP)                                                             \
-    return launch<T, HDP>(q, k, v, out, b, sq, skv, hq, hkv, hd, scale,      \
-                          causal, window, cap, q_offset, kv_len, stream);
+cudaError_t launch_scalar_f32(const repro_flash::Params& p,
+                              cudaStream_t stream) {
+  if (p.hd < 1) return cudaErrorInvalidValue;
+#define REPRO_FLASH_HD(HDP) \
+  if (p.hd <= HDP) return launch_scalar<HDP>(p, stream);
   REPRO_FLASH_HD(16)
   REPRO_FLASH_HD(32)
   REPRO_FLASH_HD(64)
@@ -286,30 +303,254 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out,
   return cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------- tc_prefill
+
+template <int HDP>
+struct TcTile {
+  static constexpr int kGroups = 2;            // warpgroups, 64 rows each
+  static constexpr int kThreads = 128 * kGroups;
+  static constexpr int kRows = 64 * kGroups;   // (query, head) rows a CTA
+  static constexpr int kKeys = 64;             // keys a tile
+  static constexpr uint32_t kQBytes = kRows * HDP * 2;
+  static constexpr uint32_t kTileBytes = kKeys * HDP * 2;   // K or V
+  // Q, 2 stages of (K, V), and room to align the tiles to 1024 bytes
+  static constexpr size_t kSmem = kQBytes + 4 * kTileBytes + 1024;
+};
+
+// VEC: rows_aligned16 (the tiles load by cp.async), else element-wise.
+template <int HDP, bool VEC>
+__global__ void __launch_bounds__(TcTile<HDP>::kThreads, 1)
+    flash_tc_prefill_kernel(const repro_flash::Params p) {
+  using C = TcTile<HDP>;
+  using namespace repro_flash;
+  extern __shared__ __align__(1024) unsigned char tile_smem[];
+  const auto* q = static_cast<const __nv_bfloat16*>(p.q);
+  const auto* k = static_cast<const __nv_bfloat16*>(p.k);
+  const auto* v = static_cast<const __nv_bfloat16*>(p.v);
+  auto* out = static_cast<__nv_bfloat16*>(p.out);
+
+  const int g = p.hq / p.hkv;
+  const long long rows = static_cast<long long>(p.sq) * g;
+  const int n_rb = static_cast<int>((rows + C::kRows - 1) / C::kRows);
+  const int heads = p.b * p.hkv;
+  const int rb = n_rb - 1 - static_cast<int>(blockIdx.x / heads);
+  const int bh = static_cast<int>(blockIdx.x % heads);
+  const int b = bh / p.hkv, kvh = bh % p.hkv;
+  const long long row0 = static_cast<long long>(rb) * C::kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = warp >> 2;   // this thread's warpgroup
+  const uint32_t q_tile = (smem_u32(tile_smem) + 1023u) & ~1023u;
+  const uint32_t kv_base = q_tile + C::kQBytes;
+
+  // key tiles that some row of this CTA can see
+  const int key_end = min(p.skv, p.kv_len);
+  const long long last_row = min(row0 + C::kRows, rows) - 1;
+  const int s_first = static_cast<int>(row0 / g);
+  const int s_last = static_cast<int>(last_row / g);
+  int hi = key_end;
+  if (p.causal) hi = min(hi, p.q_offset + s_last + 1);
+  int lo = 0;
+  if (p.window > 0) lo = max(lo, p.q_offset + s_first - p.window + 1);
+  const int t_lo = lo / C::kKeys;
+  const int t_hi = hi > lo ? (hi + C::kKeys - 1) / C::kKeys : t_lo;
+
+  const long long stride = static_cast<long long>(p.hkv) * p.hd;
+  const __nv_bfloat16* kb =
+      k + (static_cast<long long>(b) * p.skv * p.hkv + kvh) * p.hd;
+  const __nv_bfloat16* vb =
+      v + (static_cast<long long>(b) * p.skv * p.hkv + kvh) * p.hd;
+  auto load_tile = [&](int t, uint32_t dst) {
+    load_kv_tile<HDP, C::kKeys, C::kThreads, VEC>(
+        dst, kb, stride, t * C::kKeys, key_end, p.hd, tid);
+    load_kv_tile<HDP, C::kKeys, C::kThreads, VEC>(
+        dst + C::kTileBytes, vb, stride, t * C::kKeys, key_end, p.hd, tid);
+  };
+  load_q_tile<HDP, C::kRows, C::kThreads, VEC>(q_tile, q, p, b, kvh, row0,
+                                               rows, tid);
+  if (t_lo < t_hi) load_tile(t_lo, kv_base);
+  cp_async_commit();
+
+  // this warpgroup's 64 rows (a tile none of them sees is skipped), this
+  // warp's 16 (a tile all of them see whole is not masked) and this
+  // thread's two (lane / 4 and lane / 4 + 8)
+  const long long g_row0 = row0 + grp * 64;
+  const bool g_live = g_row0 < rows;
+  const long long g_last = min(g_row0 + 63, rows - 1);
+  const int gs_first = static_cast<int>(g_row0 / g);
+  const int gs_last = static_cast<int>(g_last / g);
+  const long long w_row0 = row0 + warp * 16;
+  const long long w_last = min(w_row0 + 15, rows - 1);
+  const int ws_first = static_cast<int>(min(w_row0, rows - 1) / g);
+  const int ws_last = static_cast<int>(w_last / g);
+  const int qpos[2] = {
+      p.q_offset + static_cast<int>((w_row0 + (lane >> 2)) / g),
+      p.q_offset + static_cast<int>((w_row0 + (lane >> 2) + 8) / g)};
+
+  // descriptors: Q rows of this warpgroup, K (both K-major: head dim
+  // contiguous) and V (MN-major: its head dim is the product's N)
+  const uint32_t q_rows = q_tile + grp * 64 * 128;
+  constexpr uint32_t kPanelQ = C::kRows * 128, kPanelKV = C::kKeys * 128;
+
+  float o[HDP / 8][4];
+#pragma unroll
+  for (int n = 0; n < HDP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const uint32_t k_tile = kv_base + ((t - t_lo) & 1) * 2 * C::kTileBytes;
+    const uint32_t v_tile = k_tile + C::kTileBytes;
+    if (t + 1 < t_hi) {
+      load_tile(t + 1, kv_base + ((t + 1 - t_lo) & 1) * 2 * C::kTileBytes);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const int key0 = t * C::kKeys;
+    const int key_last = key0 + C::kKeys - 1;
+    const bool seen = g_live &&
+                      (!p.causal || key0 <= p.q_offset + gs_last) &&
+                      (p.window <= 0 ||
+                       key_last > p.q_offset + gs_first - p.window);
+    if (seen) {
+      float s[C::kKeys / 8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * kPanelQ + (kk & 3) * 32;
+        const uint32_t koff = (kk >> 2) * kPanelKV + (kk & 3) * 32;
+        wgmma_m64n64_ss(s, gmma_desc(q_rows + off, 16, 1024),
+                        gmma_desc(k_tile + koff, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      const bool masked =
+          key_last >= key_end ||
+          (p.causal && key_last > p.q_offset + ws_first) ||
+          (p.window > 0 && key0 <= p.q_offset + ws_last - p.window);
+      softmax_tile<HDP, C::kKeys>(s, o, m, l, p, masked, qpos, key0,
+                                  key_end, lane);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < C::kKeys / 16; ++ks) {
+        uint32_t a[4];
+        p_operand<C::kKeys>(a, s, ks);
+        wgmma_rs<HDP>(o, a, gmma_desc(v_tile + ks * 16 * 128, kPanelKV,
+                                      1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+    }
+    __syncthreads();   // the stage is free for the load of tile t + 2
+  }
+  cp_async_wait<0>();
+
+  const float inv[2] = {1.f / fmaxf(quad_sum(l[0]), 1e-30f),
+                        1.f / fmaxf(quad_sum(l[1]), 1e-30f)};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long row = w_row0 + (lane >> 2) + 8 * i;
+    if (row >= rows) continue;
+    const long long s = row / g, h = row % g;
+    __nv_bfloat16* o_row =
+        out + ((static_cast<long long>(b) * p.sq + s) * p.hq +
+               static_cast<long long>(kvh) * g + h) * p.hd;
+#pragma unroll
+    for (int n = 0; n < HDP / 8; ++n) {
+      const int d = n * 8 + (lane & 3) * 2;
+      if (d >= p.hd) continue;
+      const float x0 = o[n][2 * i] * inv[i], x1 = o[n][2 * i + 1] * inv[i];
+      if constexpr (VEC) {
+        *reinterpret_cast<__nv_bfloat162*>(o_row + d) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        o_row[d] = __float2bfloat16_rn(x0);
+        if (d + 1 < p.hd) o_row[d + 1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
+template <int HDP, bool VEC>
+cudaError_t launch_tc(const repro_flash::Params& p, cudaStream_t stream) {
+  using C = TcTile<HDP>;
+  auto* kernel = flash_tc_prefill_kernel<HDP, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
+  if (err != cudaSuccess) return err;
+  const long long rows = static_cast<long long>(p.sq) * (p.hq / p.hkv);
+  const long long ctas = static_cast<long long>(p.b) * p.hkv *
+                         ((rows + C::kRows - 1) / C::kRows);
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(ctas), C::kThreads, C::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool VEC>
+cudaError_t launch_tc_hd(const repro_flash::Params& p, cudaStream_t stream) {
+  if (p.hd <= 64) return launch_tc<64, VEC>(p, stream);
+  if (p.hd <= 128) return launch_tc<128, VEC>(p, stream);
+  return launch_tc<256, VEC>(p, stream);
+}
+
+cudaError_t launch_tc_prefill(const repro_flash::Params& p,
+                              cudaStream_t stream) {
+  if (p.hd < 1 || p.hd > 256) return cudaErrorInvalidValue;
+  return repro_flash::rows_aligned16(p) ? launch_tc_hd<true>(p, stream)
+                                        : launch_tc_hd<false>(p, stream);
+}
+
 }  // namespace
 
+namespace repro_flash {
+// flash_decode.cu
+cudaError_t launch_split_decode(const Params& p, cudaStream_t stream);
+}  // namespace repro_flash
+
 // q [b, sq, hq, hd], k/v [b, skv, hkv, hd], out [b, sq, hq, hd], all
-// contiguous, f32 (is_bf16 = 0) or bf16 (1); hq a multiple of hkv;
-// 1 <= hd <= 256; ceil(sq * hq / hkv / 64) <= 65535. scale: the logit
-// scale (1 / sqrt(hd), rounded once from double as the reference does);
-// causal: 0/1;
-// window <= 0: none; cap <= 0: no softcap; kv_len: keys at positions
-// >= kv_len are masked.
+// contiguous; hq a multiple of hkv; 1 <= hd <= 256. route: 0 =
+// scalar_f32 (f32, ceil(sq * hq / hkv / 64) <= 65535), 1 = tc_prefill
+// (bf16), 2 = split_decode (bf16, sq * hq / hkv <= 16, n_chunks >= 1
+// and scratch of b * hkv * n_chunks * sq * (hq / hkv) * (hd + 2)
+// floats). The bf16 routes take any alignment: rows that do not all
+// start on 16 bytes load element by element. scale: the
+// logit scale (1 / sqrt(hd), rounded once from double as the reference
+// does); causal: 0/1; window <= 0: none; cap <= 0: no softcap; kv_len:
+// keys at positions >= kv_len are masked. Returns a CUDA error code; an
+// unknown route or a shape it does not take is cudaErrorInvalidValue.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int b, int sq,
-                                     int skv, int hq, int hkv, int hd,
-                                     float scale, int causal, int window,
-                                     float cap,
-                                     int q_offset, int kv_len, int is_bf16,
+                                     const void* v, void* out, void* scratch,
+                                     int b, int sq, int skv, int hq, int hkv,
+                                     int hd, float scale, int causal,
+                                     int window, float cap, int q_offset,
+                                     int kv_len, int route, int n_chunks,
                                      void* stream) {
   if (b == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_hd<__nv_bfloat16>(q, k, v, out, b, sq, skv, hq, hkv,
-                                         hd, scale, causal, window, cap,
-                                         q_offset, kv_len, s)
-              : launch_hd<float>(q, k, v, out, b, sq, skv, hq, hkv, hd,
-                                 scale, causal, window, cap, q_offset,
-                                 kv_len, s);
+  const repro_flash::Params p{q,     k,      v,        out,
+                              static_cast<float*>(scratch),
+                              b,     sq,     skv,      hq,     hkv,  hd,
+                              scale, cap,    causal,   window, q_offset,
+                              kv_len, n_chunks};
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (route) {
+    case 0:
+      err = launch_scalar_f32(p, s);
+      break;
+    case 1:
+      err = launch_tc_prefill(p, s);
+      break;
+    case 2:
+      err = repro_flash::launch_split_decode(p, s);
+      break;
+    default:
+      break;
+  }
   return static_cast<int>(err);
 }

@@ -1,14 +1,11 @@
 """Fused flash attention: the port of
-``repro.kernels.flash.flash_attention_fused``.
+``repro.kernels.flash.flash_attention_fused`` (``src/repro/kernels/
+flash.py:92``).
 
 Online-softmax GQA attention over ``[B, S, H, hd]`` tensors with causal
 masking (and ``q_offset`` for decode and continuation), a sliding
 ``window``, a ``logit_cap`` tanh softcap and a ``kv_len`` bound on the
 keys; m, l and the accumulator in f32, the output in the input type.
-The TPU kernel keeps one (batch x kv head, q block) program's logits and
-probabilities in VMEM; the Hopper kernel (``csrc/flash.cu``) keeps them
-in shared memory and registers of one CTA, with the g query heads of a
-kv head in the same CTA, and walks only the key tiles its rows can see.
 It ports the semantics of the attention the reference's model runs
 (``layers.flash_attention`` at its default), which the kernel stands in
 for on the card: probabilities and values are rounded to bf16 for the
@@ -17,8 +14,36 @@ p.v in f32, so for f32 inputs this kernel is less precise than the one
 it replaces (the difference is within the reference's 5e-3 f32
 tolerance of the two).
 
+On the card every call takes one of three routes, a pure function of
+the shapes and the type (:func:`_route`); (query, head) pairs of one
+(batch, kv head) are flattened into rows ``s * g + h``, so the g query
+heads of a kv head share every K/V tile:
+
+* ``"tc_prefill"`` (``csrc/flash.cu``): bf16 with more than
+  ``SPLIT_MAX_ROWS`` rows per (batch, kv head). Bound by operations: both
+  products on the tensor cores through ``wgmma`` (two warpgroups, 128
+  rows a CTA), K and V streamed as bf16 through a two-stage
+  ``cp.async`` ring into 128-byte-swizzled shared tiles (element by
+  element where a row does not start on 16 bytes: a head dim that is not
+  a multiple of 8, or a tensor off a 16-byte boundary), masks only on
+  edge tiles.
+* ``"split_decode"`` (``csrc/flash_decode.cu``): bf16 with at most
+  ``SPLIT_MAX_ROWS`` rows, i.e. decode steps. Bound by bytes: the visible
+  keys of each (batch, kv head) are cut into :func:`_split_chunks`
+  chunks so the whole card reads the cache once (``mma.sync`` products,
+  each warp a quarter of the head dim); each chunk writes a partial
+  (m, l, acc) to f32 scratch and a second launch merges them (the
+  algorithm of :func:`repro_torch.kernels.ref.flash_attention_split_ref`).
+* ``"scalar_f32"`` (``csrc/flash.cu``): f32, the first port's kernel
+  (scalar FMAs from shared memory); TF32 tensor cores would not hold
+  the f32 tolerance.
+
+The caller's route is the one launched; nothing falls back. Each call
+counts one launch in ``flash_attention_fused.launches`` and one in
+``flash_attention_fused.launches_by_route[route]``.
+
 ``flash_attention_fused`` keeps the reference's contract (Sq and Skv
-divide by the block sizes); the Hopper kernel's own tiles take ragged
+divide by the block sizes); the Hopper kernels' tiles take ragged
 edges, so ``flash_attention_ragged`` is the same call on any Sq and Skv,
 and the model's decode reads its cache in place through it. On a CPU
 tensor both run the plain version,
@@ -36,9 +61,58 @@ from repro_torch.kernels.ref import flash_attention_ref
 BLOCK_Q = 256
 BLOCK_KV = 512
 MAX_HEAD_DIM = 256
-ROWS_PER_CTA = 64      # (query, head) rows per CTA in csrc/flash.cu
-MAX_GRID_Y = 65535
 DTYPES = (torch.float32, torch.bfloat16)
+ROUTES = ("tc_prefill", "split_decode", "scalar_f32")
+_ROUTE_CODE = {"scalar_f32": 0, "tc_prefill": 1, "split_decode": 2}
+# tc_prefill: (query, head) rows a CTA; a 1-D grid
+TC_ROWS_PER_CTA = 128
+MAX_GRID_X = 2 ** 31 - 1
+# split_decode: rows per (batch, kv head) it takes (one 16-row mma tile),
+# the CTAs its grid aims at (two per SM of the H100's 132), the fewest
+# keys a chunk (two 64-key tiles)
+SPLIT_MAX_ROWS = 16
+SPLIT_TARGET_CTAS = 264
+SPLIT_MIN_KEYS = 128
+# scalar_f32: rows a CTA, and its grid's y limit
+SCALAR_ROWS_PER_CTA = 64
+SCALAR_MAX_GRID_Y = 65535
+
+
+def _route(b: int, sq: int, hq: int, hkv: int, hd: int, dtype) -> str:
+    """The kernel route of a call on the card, from its shapes and type
+    alone: ``"scalar_f32"`` for f32; for bf16 ``"split_decode"`` when a
+    (batch, kv head) has at most ``SPLIT_MAX_ROWS`` (query, head) rows
+    (``sq * hq / hkv``), else ``"tc_prefill"``. Raises for what no route
+    takes: another type (``TypeError``), a head dim outside [1, 256] or a
+    grid the card cannot launch (``ValueError``). Every head dim in range
+    and every alignment is taken: the bf16 routes load rows that do not
+    start on 16 bytes element by element."""
+    if dtype not in DTYPES:
+        raise TypeError(f"flash_attention_fused takes {DTYPES} on the card, "
+                        f"got {dtype}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} not in [1, {MAX_HEAD_DIM}]")
+    rows = sq * (hq // hkv)
+    if dtype == torch.float32:
+        if -(-rows // SCALAR_ROWS_PER_CTA) > SCALAR_MAX_GRID_Y:
+            raise ValueError(f"{sq} queries x {hq // hkv} heads per kv head "
+                             "exceed the f32 kernel's grid")
+        return "scalar_f32"
+    if rows <= SPLIT_MAX_ROWS:
+        return "split_decode"
+    if b * hkv * -(-rows // TC_ROWS_PER_CTA) > MAX_GRID_X:
+        raise ValueError(f"{b} x {hkv} x {rows} rows exceed the grid")
+    return "tc_prefill"
+
+
+def _split_chunks(b: int, hkv: int, skv: int) -> int:
+    """Chunks per (batch, kv head) of a ``split_decode`` call: enough for
+    ``SPLIT_TARGET_CTAS`` CTAs, at most one per ``SPLIT_MIN_KEYS`` keys
+    of the cache, at least 1. A function of shapes only: the kernel
+    cuts the visible keys (from ``q_offset`` and ``kv_len``) into this
+    many chunks of whole 64-key tiles, with no host synchronisation."""
+    return max(1, min(-(-SPLIT_TARGET_CTAS // (b * hkv)),
+                      -(-skv // SPLIT_MIN_KEYS)))
 
 
 def flash_attention_fused(q: torch.Tensor, k: torch.Tensor,
@@ -69,8 +143,9 @@ def flash_attention_ragged(q: torch.Tensor, k: torch.Tensor,
                            kv_len: int | None = None) -> torch.Tensor:
     """The fused attention on any Sq and Skv, keys bounded by ``kv_len``
     (None: Skv). ``q_offset`` and ``kv_len`` are plain ints passed to the
-    kernel at launch. CUDA tensors launch the kernel (counted in
-    ``flash_attention_fused.launches``); CPU tensors run
+    kernel at launch. CUDA tensors launch the route :func:`_route`
+    names (counted in ``flash_attention_fused.launches`` and
+    ``.launches_by_route``) or raise; CPU tensors run
     ``flash_attention_ref``.
     """
     b, sq, hq, hd = q.shape
@@ -86,30 +161,34 @@ def flash_attention_ragged(q: torch.Tensor, k: torch.Tensor,
                                    logit_cap=logit_cap, q_offset=q_offset,
                                    kv_len=kv_len)
     build.require_cuda("flash_attention_fused", q, k, v)
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_fused takes {DTYPES} on the card, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {hd} > {MAX_HEAD_DIM}")
-    if -(-sq * (hq // hkv) // ROWS_PER_CTA) > MAX_GRID_Y:
-        raise ValueError(f"{sq} queries x {hq // hkv} heads per kv head "
-                         "exceed the kernel's grid")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_fused takes one type, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    route = _route(b, sq, hq, hkv, hd, q.dtype)
     if window is not None and window < 1:
         raise ValueError(f"window {window} must be >= 1 or None")
     if logit_cap is not None and logit_cap <= 0:
         raise ValueError(f"logit_cap {logit_cap} must be > 0 or None")
     out = torch.empty_like(q)
+    n_chunks, scratch = 0, None
+    if route == "split_decode":
+        n_chunks = _split_chunks(b, hkv, skv)
+        scratch = torch.empty(b * hkv * n_chunks * sq * (hq // hkv) * (hd + 2),
+                              dtype=torch.float32, device=q.device)
     lib = build.load_library()
     with torch.cuda.device(q.device):
         rc = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            skv, hq, hkv, hd, 1.0 / math.sqrt(hd), int(causal),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, sq, skv, hq,
+            hkv, hd, 1.0 / math.sqrt(hd), int(causal),
             0 if window is None else int(window),
             0.0 if logit_cap is None else float(logit_cap), int(q_offset),
-            kv_len, int(q.dtype == torch.bfloat16), build.stream_of(q))
+            kv_len, _ROUTE_CODE[route], n_chunks, build.stream_of(q))
     build.check(lib, "flash_attention_fused", rc)
     flash_attention_fused.launches += 1
+    flash_attention_fused.launches_by_route[route] += 1
     return out
 
 
 flash_attention_fused.launches = 0
+flash_attention_fused.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -187,3 +187,64 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(b, sq, hq, hd).to(q.dtype)
+
+
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool,
+                              window: int | None, logit_cap: float | None,
+                              q_offset: int, kv_len: int | None = None,
+                              n_chunks: int, tile: int = 64) -> torch.Tensor:
+    """The algorithm of ``flash``'s ``split_decode`` route in plain
+    PyTorch: the keys some query sees, ``[lo, hi)``, cut into
+    ``n_chunks`` chunks of whole ``tile``-key tiles; per chunk a partial
+    (m, l, acc) in f32 (probabilities and values rounded to bf16 for
+    p.v, l from the unrounded probabilities; a chunk with no key
+    m = -1e30, l = 0, acc = 0); then the merge ``m = max m_c``,
+    ``l = sum l_c e^(m_c - m)``, ``out = sum acc_c e^(m_c - m) / l``.
+    The same function as :func:`flash_attention_ref` for every row with
+    a visible key. Shapes as there."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dev = q.device
+    key_end = skv if kv_len is None else min(kv_len, skv)
+    hi = min(key_end, q_offset + sq) if causal else key_end
+    lo = max(0, q_offset - window + 1) if window is not None else 0
+    span = max(hi - lo, 0)
+    per = -(-(-(-span // n_chunks)) // tile) * tile
+    qr = q.reshape(b, sq, hkv, g, hd).float()
+    qpos = q_offset + torch.arange(sq, device=dev)
+    scale = 1.0 / math.sqrt(hd)
+    ms, ls, accs = [], [], []
+    for c in range(n_chunks):
+        c_lo = lo + c * per
+        c_hi = min(hi, c_lo + per)
+        if c_hi <= c_lo:
+            ms.append(torch.full((b, sq, hkv, g), -1e30, device=dev))
+            ls.append(torch.zeros((b, sq, hkv, g), device=dev))
+            accs.append(torch.zeros((b, sq, hkv, g, hd), device=dev))
+            continue
+        kvpos = torch.arange(c_lo, c_hi, device=dev)
+        logits = torch.einsum("bskgd,bckd->bskgc", qr,
+                              k[:, c_lo:c_hi].float()) * scale
+        if logit_cap is not None:
+            logits = logit_cap * torch.tanh(logits / logit_cap)
+        mask = torch.ones((sq, c_hi - c_lo), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (kvpos[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & (qpos[:, None] - kvpos[None, :] < window)
+        logits = torch.where(mask[None, :, None, None, :], logits, -1e30)
+        m = logits.amax(dim=-1)
+        probs = torch.exp(logits - m[..., None])
+        ms.append(m)
+        ls.append(probs.sum(dim=-1))
+        accs.append(torch.einsum(
+            "bskgc,bckd->bskgd", probs.to(torch.bfloat16).float(),
+            v[:, c_lo:c_hi].to(torch.bfloat16).float()))
+    m_c = torch.stack(ms)
+    w = torch.exp(m_c - m_c.amax(dim=0))
+    l = (torch.stack(ls) * w).sum(dim=0)
+    acc = (torch.stack(accs) * w[..., None]).sum(dim=0)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, sq, hq, hd).to(q.dtype)

@@ -325,7 +325,30 @@ FLASH_CASES = [
     (1, 512, 512, 16, 8, 256, True, 100, 50.0, 0, None),      # gemma2 local
     (4, 64, 576, 16, 8, 256, False, 300, 50.0, 400, 401),     # decode
     (3, 64, 128, 14, 2, 80, True, None, None, 64, 100),       # hd 80, kv_len
+    (1, 256, 512, 8, 8, 128, True, None, None, 256, None),    # g=1 (qwen1.5)
+    (1, 256, 512, 32, 2, 128, True, None, None, 256, None),   # g=16 (glm4)
+    (1, 1, 8208, 16, 8, 256, False, None, 50.0, 8000, 8001),  # kv_len mid-chunk
+    (1, 8, 2048, 4, 2, 64, True, 300, None, 2000, 2008),      # window edges
+    (1, 1, 8208, 16, 8, 256, False, None, 50.0, 999, 1000),   # empty chunks
+    (1, 16, 4096, 4, 4, 64, True, None, 30.0, 100, None),     # causal, empty
+    (1, 1, 32768, 16, 8, 256, False, None, 50.0, 32767, None),  # long cache
+    (2, 8, 1000, 16, 8, 128, True, None, 30.0, 992, None),    # 16 rows: split
+    (2, 9, 1000, 16, 8, 128, True, None, 30.0, 991, None),    # 18 rows: tc
+    (1, 200, 300, 4, 2, 100, True, 90, 30.0, 100, None),      # hd 100: tc
+    (2, 1, 700, 8, 4, 100, False, None, 30.0, 650, 651),      # hd 100: split
+    (1, 130, 130, 6, 3, 37, True, None, None, 0, None),       # hd 37: tc
+    (3, 2, 500, 8, 2, 37, True, 200, 50.0, 400, 450),         # hd 37: split
 ]
+
+
+def _expected_route(case, dtype):
+    """f32 takes the scalar kernel; bf16 the split over the cache when a
+    (batch, kv head) has at most 16 (query, head) rows, else the
+    tensor-core prefill."""
+    _, sq, _, hq, hkv = case[:5]
+    if dtype == torch.float32:
+        return "scalar_f32"
+    return "split_decode" if sq * (hq // hkv) <= 16 else "tc_prefill"
 
 
 @pytest.mark.cuda
@@ -334,7 +357,8 @@ FLASH_CASES = [
 def test_cuda_flash_attention_equals_plain(cuda, dtype, case):
     """The flash kernel against flash_attention_ref on the same card
     inputs (both round probabilities and values to bf16 for the PV
-    product, and sum in other orders): ``_attention_close``."""
+    product, and sum in other orders): ``_attention_close``; the call
+    launches the route its shape and type name, once."""
     from repro_torch.kernels import flash as t_flash
     b, sq, skv, hq, hkv, hd, causal, window, cap, q_offset, kv_len = case
     gen = torch.Generator(device=cuda)
@@ -345,12 +369,46 @@ def test_cuda_flash_attention_equals_plain(cuda, dtype, case):
     kw = dict(causal=causal, window=window, logit_cap=cap,
               q_offset=q_offset, kv_len=kv_len)
     before = t_flash.flash_attention_fused.launches
-    got = t_flash.flash_attention_fused(q, k, v, block_q=64, block_kv=64,
+    by_route = dict(t_flash.flash_attention_fused.launches_by_route)
+    got = t_flash.flash_attention_fused(q, k, v, block_q=1, block_kv=1,
                                         **kw)
     assert t_flash.flash_attention_fused.launches == before + 1
+    by_route[_expected_route(case, dtype)] += 1
+    assert t_flash.flash_attention_fused.launches_by_route == by_route
     want = t_ref.flash_attention_ref(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == q.shape
     _attention_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [FLASH_CASES[6], FLASH_CASES[11],
+                                  FLASH_CASES[-2], FLASH_CASES[-1]])
+def test_cuda_flash_takes_unaligned_tensors(cuda, dtype, case):
+    """q, k and v that start one element past a 16-byte boundary (views
+    into larger buffers) give the plain version's result on the route
+    their shape names: the bf16 tiles load such rows element by
+    element."""
+    from repro_torch.kernels import flash as t_flash
+    b, sq, skv, hq, hkv, hd, causal, window, cap, q_offset, kv_len = case
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sq + skv + hd + 1)
+
+    def off_by_one(shape):
+        n = int(np.prod(shape))
+        buf = torch.randn(n + 1, generator=gen, device=cuda).to(dtype)
+        return buf[1:].view(shape)
+
+    q, k, v = (off_by_one(s) for s in ((b, sq, hq, hd), (b, skv, hkv, hd),
+                                       (b, skv, hkv, hd)))
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    kw = dict(causal=causal, window=window, logit_cap=cap,
+              q_offset=q_offset, kv_len=kv_len)
+    by_route = dict(t_flash.flash_attention_fused.launches_by_route)
+    got = t_flash.flash_attention_ragged(q, k, v, **kw)
+    by_route[_expected_route(case, dtype)] += 1
+    assert t_flash.flash_attention_fused.launches_by_route == by_route
+    _attention_close(got, t_ref.flash_attention_ref(q, k, v, **kw))
 
 
 @pytest.mark.cuda

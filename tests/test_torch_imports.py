@@ -30,8 +30,8 @@ PORT_FILES = sorted(PORT.rglob("*.py"))
 def test_port_has_python_and_cuda_sources():
     assert len(PORT_FILES) > 15
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
-        == ["coalesce_kernel.cu", "flash.cu", "fused_round.cu", "pack.cu",
-            "sort.cu", "zero_skip.cu"]
+        == ["coalesce_kernel.cu", "flash.cu", "flash_decode.cu",
+            "fused_round.cu", "pack.cu", "sort.cu", "zero_skip.cu"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
