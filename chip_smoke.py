@@ -263,11 +263,19 @@ def phase_kernels(torch, dev, reps):
                           ref.sort_ref(o, ln, c))
         require(err == 0, f"bitonic_sort [{rows}, {n}] != sort_ref")
         b, by = bound(6 * rows * n * 4, rows * n * math.log2(n))
+
+        def library():   # the same function: keys and both carries
+            keys, idx = torch.sort(o, dim=1, stable=True)
+            return keys, ln.gather(1, idx), c.gather(1, idx)
+
+        lib_err = max_abs_err(torch, library(), ref.sort_ref(o, ln, c))
+        require(lib_err == 0, f"torch.sort + gathers [{rows}, {n}] "
+                "!= sort_ref")
         rec = {"shape": [rows, n], "max_abs_err": err,
                "ms": timed(lambda: sort.bitonic_sort(o, ln, c)),
                "plain_ms": timed(lambda: ref.sort_ref(o, ln, c)),
-               "library_ms": timed(
-                   lambda: torch.sort(o, dim=1, stable=True)),
+               "library_ms": timed(library),
+               "library": "torch.sort(stable=True) + two gathers",
                "bound_ms": b, "bound_by": by}
         emit({"phase": "kernel", "kernel": "bitonic_sort", **rec})
         results.setdefault("bitonic_sort", rec)
@@ -347,6 +355,7 @@ def phase_kernels(torch, dev, reps):
 
         out = fused_round.zero_skip_decode(vals, pos)
         require(torch.equal(out, x), f"zero_skip [{rows}, {n}] round trip")
+        nonzero = rec["nonzero"]
         del x
         err_d = max(max_abs_err(torch, (out[c],),
                                 (ref.zero_skip_decode_ref(vals[c],
@@ -355,21 +364,23 @@ def phase_kernels(torch, dev, reps):
         require(err_d == 0, f"zero_skip_decode [{rows}, {n}] != plain")
         del out
         torch.cuda.empty_cache()
-        b, by = bound(12 * rows * n, rows * n)
-        rec = {"shape": [rows, n], "max_abs_err": err_d,
+        # the least traffic: pos read whole, vals read where pos >= 0
+        # (the row's nonzeros), the output written once
+        b, by = bound(4 * rows * n + 4 * nonzero + 4 * rows * n, rows * n)
+        rec = {"shape": [rows, n], "nonzero": nonzero, "max_abs_err": err_d,
                "ms": timed(lambda: fused_round.zero_skip_decode(vals, pos)),
                "plain_ms": timed(lambda: [ref.zero_skip_decode_ref(
                    vals[c], pos[c]) for c in spans], max(2, reps // 4)),
                "bound_ms": b, "bound_by": by}
         # library: one scatter_ into a zeroed [rows, n + 1] buffer whose
-        # last column takes pos -1 (index prepared outside the timing)
-        idx = torch.where(pos >= 0, pos, n).to(torch.int64)
+        # last column takes pos -1, the index built inside the timing
         stage = torch.empty((rows, n + 1), dtype=vals.dtype, device=dev)
-        rec["library_ms"] = timed(
-            lambda: stage.zero_().scatter_(1, idx, vals))
+        rec["library_ms"] = timed(lambda: stage.zero_().scatter_(
+            1, torch.where(pos >= 0, pos, n).to(torch.int64), vals))
+        rec["library"] = "torch.where + scatter_ into [rows, n + 1]"
         emit({"phase": "kernel", "kernel": "zero_skip_decode", **rec})
         results.setdefault("zero_skip_decode", rec)
-        del vals, pos, idx, stage
+        del vals, pos, stage
         torch.cuda.empty_cache()
     del flush
     return results
@@ -837,9 +848,10 @@ STEPS = {"repro_torch.core.rounds": ("_compact_active", "repack_sorted",
                                      "fused_drain_pack",
                                      "rle_zero_skip_encode",
                                      "rle_zero_skip_decode")}
-PORT_KERNELS = ("sort_rows_kernel", "coalesce_rows_kernel",
-                "pack_tiles_kernel", "zero_skip_encode_kernel",
-                "zero_skip_decode_kernel", "flash_attention_kernel",
+PORT_KERNELS = ("sort_blocks_kernel", "sort_merge_kernel",
+                "coalesce_rows_kernel", "pack_tiles_kernel",
+                "zero_skip_encode_kernel", "zero_skip_zero_kernel",
+                "zero_skip_scatter_kernel", "flash_attention_kernel",
                 "flash_tc_prefill_kernel", "flash_split_decode_kernel",
                 "flash_split_merge_kernel")
 

@@ -11,7 +11,6 @@
 namespace repro {
 
 constexpr int kPadOffset = 0x7fffffff;   // PAD_OFFSET: sorts to the end
-constexpr int kMaxBlock = 32768;         // MAX_BLOCK / MAX_REQ_BLOCK
 constexpr int kTile = 4096;              // output tile of the drain pack
 
 // Threads for a one-CTA-per-row kernel over n elements: a multiple of

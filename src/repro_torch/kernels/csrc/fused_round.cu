@@ -10,11 +10,11 @@
 //
 // Design: the TPU kernel sorts once and keeps the sorted metadata in
 // VMEM scratch across its sequential grid. CUDA blocks run concurrently
-// and in no order, so that does not carry over: the call is two
-// launches on one stream. Launch 1 is the shared-memory bitonic sort of
-// bitonic.cuh (offsets, carrying lengths and starts) into scratch the
-// wrapper allocates. Launch 2 is a tile kernel over grid (out_len /
-// TILE, rows): each thread binary-searches its row's sorted offsets
+// and in no order, so that does not carry over: the call is the sort's
+// launches (bitonic.cuh: block sorts and merges over many CTAs a row;
+// offsets, carrying lengths and starts) into scratch the wrapper
+// allocates, then a tile kernel over grid (out_len / TILE, rows), on one
+// stream. In a tile each thread binary-searches its row's sorted offsets
 // (read through the read-only cache; the metadata of a row is at most
 // 384 KiB and stays in L2) once per output position. Row bases are
 // 64-bit: rows x out_len reaches 2^28 and the payload 2^31 elements.
@@ -27,21 +27,24 @@
 
 // offsets/lengths/starts: int32 [b, cap] (unsorted, PAD_OFFSET/0 pad),
 // cap a power of two <= 32768; data [b, dcap] of elem_bytes-wide
-// elements; base int32 [b]; sorted_*: int32 [b, cap] scratch; win/mask
+// elements; base int32 [b]; sorted_*: int32 [b, cap] scratch; words: the
+// sort's uint64 scratch (min(passes, 2) * b * cap, bitonic.cuh); win/mask
 // [b, out_len], out_len a multiple of 4096; one_bits: the bytes of 1 in
 // the payload type. b <= 65535 (grid y).
 extern "C" int repro_fused_sort_pack(const int* offsets, const int* lengths,
                                      const int* starts, const void* data,
                                      const int* base, int* sorted_offsets,
                                      int* sorted_lengths, int* sorted_starts,
-                                     void* win, void* mask, int b, int cap,
+                                     unsigned long long* words, void* win,
+                                     void* mask, int b, int cap,
                                      long long dcap, long long out_len,
                                      int elem_bytes,
                                      unsigned long long one_bits,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_sort_rows(offsets, lengths, starts, sorted_offsets,
-                                     sorted_lengths, sorted_starts, b, cap, s);
+                                     sorted_lengths, sorted_starts, words, b,
+                                     cap, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b == 0 || out_len == 0) return static_cast<int>(cudaGetLastError());
   err = launch_pack_elems(sorted_offsets, sorted_lengths, sorted_starts,

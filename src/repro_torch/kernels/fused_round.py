@@ -7,19 +7,21 @@ request list by offset, then pack the window payload AND its coverage
 mask from ONE binary search per output position. The TPU kernel sorts
 once and keeps the sorted metadata in VMEM scratch across its sequential
 grid; CUDA blocks run concurrently, so the Hopper version
-(``csrc/fused_round.cu``) is two launches behind one call: the
-shared-memory bitonic sort into scratch, then a tile kernel over
-``(out_len / TILE, rows)``. Batched: ``[B, cap]`` lists give
-``[B, out_len]`` windows. On a CPU tensor the wrapper runs the plain
-version, :func:`repro_torch.kernels.ref.fused_sort_pack_ref`.
+(``csrc/fused_round.cu``) is several launches behind one call: the sort
+of ``sort.bitonic_sort`` (block sorts and merges, many CTAs a row) into
+scratch, then a tile kernel over ``(out_len / TILE, rows)``. Batched:
+``[B, cap]`` lists give ``[B, out_len]`` windows. On a CPU tensor the
+wrapper runs the plain version,
+:func:`repro_torch.kernels.ref.fused_sort_pack_ref`.
 
 The rle codec's wire form on the slow hop is a zero-skip compaction of
 each payload row. The TPU kernels hold a whole row in VMEM; a row of
 131072 or 262144 4-byte elements does not fit a Hopper block's shared
 memory, so ``csrc/zero_skip.cu`` walks each row in tiles with a carried
-count (encode) and scatters each row after zeroing it (decode). Both
-take 4-byte payloads (int32, float32), the types the round engine
-gives them.
+count (encode), and decodes in two launches spread over the whole card
+whatever the number of rows: zero the output, then scatter every tile of
+``(vals, pos)`` entries. Both take 4-byte payloads (int32, float32), the
+types the round engine gives them.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (fused_sort_pack_ref,
                                     zero_skip_decode_ref,
                                     zero_skip_encode_ref)
+from repro_torch.kernels.sort import word_scratch
 
 MAX_REQ_BLOCK = 32768
 TILE = 4096
@@ -82,6 +85,7 @@ def fused_sort_pack(offsets: torch.Tensor, lengths: torch.Tensor,
                        base_rows, dtype=torch.int32)
     build.require_cuda("fused_sort_pack", offsets, data)
     scratch = tuple(torch.empty_like(offsets) for _ in range(3))
+    words = word_scratch(b, cap, offsets.device)
     win = torch.empty((b, out_len), dtype=data.dtype, device=data.device)
     mask = torch.empty_like(win)
     lib = build.load_library()
@@ -89,8 +93,8 @@ def fused_sort_pack(offsets: torch.Tensor, lengths: torch.Tensor,
         rc = lib.repro_fused_sort_pack(
             offsets.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
             data.data_ptr(), base_rows.data_ptr(),
-            *(s.data_ptr() for s in scratch), win.data_ptr(),
-            mask.data_ptr(), b, cap, data.shape[1], out_len,
+            *(s.data_ptr() for s in scratch), words.data_ptr(),
+            win.data_ptr(), mask.data_ptr(), b, cap, data.shape[1], out_len,
             data.element_size(), _one_bits(data.dtype),
             build.stream_of(offsets))
     build.check(lib, "fused_sort_pack", rc)

@@ -28,6 +28,129 @@ def sort_ref(offsets: torch.Tensor, lengths: torch.Tensor,
             carry.gather(-1, order))
 
 
+SORT_BLOCK = 4096    # words a block-sort CTA sorts (csrc/bitonic.cuh)
+MERGE_CHUNK = 2048   # outputs a merge CTA writes
+MERGE_ITEMS = 8      # outputs a merge thread writes
+
+
+def _bitonic_network(x: torch.Tensor) -> torch.Tensor:
+    """The block sort's bitonic network over the last axis (a power of
+    two), in the form whose stages all ascend: stage k first pairs each
+    entry i of a k-run's lower half with its mirror i ^ (k - 1), then
+    strides k / 4 .. 1 pair i with i ^ j; the smaller word always goes
+    to the lower index."""
+    m = x.shape[-1]
+    i = torch.arange(m, device=x.device)
+    k = 2
+    while k <= m:
+        j = k // 2
+        while j:
+            mask = k - 1 if j == k // 2 else j
+            other = x[..., i ^ mask]
+            lower = (i & j) == 0
+            x = torch.where(lower, torch.minimum(x, other),
+                            torch.maximum(x, other))
+            j //= 2
+        k *= 2
+    return x
+
+
+def _co_rank(a: torch.Tensor, b: torch.Tensor, la: torch.Tensor,
+             lb: torch.Tensor, d: torch.Tensor,
+             b_at: torch.Tensor) -> torch.Tensor:
+    """Merge path, by binary search: the number of a's words among the
+    first ``d`` of the merge of ``a[..., :la]`` and ``b[..., b_at:b_at +
+    lb]`` (words unique). ``a``, ``b``: ``[..., L]``; ``la``, ``lb``,
+    ``d``, ``b_at``: int64 tensors broadcasting to ``[..., K]``, one cut
+    each."""
+    d, la, lb, b_at = torch.broadcast_tensors(d, la, lb, b_at)
+    lo = torch.clamp(d - lb, min=0)
+    hi = torch.minimum(d, la)
+    while bool((lo < hi).any()):
+        mid = (lo + hi) // 2
+        active = lo < hi
+        ai = a.gather(-1, mid.clamp(0, a.shape[-1] - 1))
+        bi = b.gather(-1, (b_at + d - 1 - mid).clamp(0, b.shape[-1] - 1))
+        before = active & (ai < bi)
+        lo = torch.where(before, mid + 1, lo)
+        hi = torch.where(active & ~before, mid, hi)
+    return lo
+
+
+def _merge_pass(x: torch.Tensor, run: int, chunk: int,
+                items: int) -> torch.Tensor:
+    """One merge launch: pairs of sorted ``run``-word runs of ``[b, n]``
+    merged into runs of ``2 * run``. Each CTA writes ``chunk`` outputs
+    (fewer where a pair is shorter): its two cuts by merge path, its
+    slices of both runs staged side by side, and per thread the cut of
+    its ``items`` outputs and a sequential merge of them."""
+    b, n = x.shape
+    chunk = min(chunk, 2 * run)
+    items = min(items, chunk)
+    threads = chunk // items
+    n_pairs = n // (2 * run)
+    pairs = x.reshape(b, n_pairs, 2, run)
+    a, bb = pairs[:, :, 0], pairs[:, :, 1]            # [b, P, run]
+    dev = x.device
+    diag = torch.arange(0, 2 * run + 1, chunk, device=dev)
+    zero, whole = torch.tensor(0), torch.tensor(run)
+    cuts = _co_rank(a, bb, whole, whole, diag.expand(b, n_pairs, -1),
+                    zero)                             # [b, P, C + 1]
+    a0, na = cuts[..., :-1], cuts[..., 1:] - cuts[..., :-1]
+    b0 = diag[:-1] - a0                               # [b, P, C]
+    n_chunks = a0.shape[-1]
+    idx = torch.arange(chunk, device=dev)
+    src_a = (a0[..., None] + idx).clamp(max=run - 1)  # [b, P, C, chunk]
+    src_b = (b0[..., None] + idx - na[..., None]).clamp(0, run - 1)
+    ga = a.gather(-1, src_a.reshape(b, n_pairs, -1)).reshape(src_a.shape)
+    gb = bb.gather(-1, src_b.reshape(b, n_pairs, -1)).reshape(src_b.shape)
+    xs = torch.where(idx < na[..., None], ga, gb)     # the staged chunk
+    # each thread's cut inside it: a = xs[:na], b = xs[na:]
+    dt = torch.arange(threads, device=dev) * items
+    na_t = na[..., None].expand(b, n_pairs, n_chunks, threads)
+    lo = _co_rank(xs, xs, na_t, chunk - na_t, dt.expand_as(na_t), na_t)
+    ia, ib = lo, dt - lo
+    merged = []
+    for _ in range(items):
+        xa = xs.gather(-1, ia.clamp(max=chunk - 1))
+        xb = xs.gather(-1, (na_t + ib).clamp(max=chunk - 1))
+        take_a = (ib >= chunk - na_t) | ((ia < na_t) & (xa < xb))
+        merged.append(torch.where(take_a, xa, xb))
+        ia = ia + take_a.to(ia.dtype)
+        ib = ib + (~take_a).to(ib.dtype)
+    return torch.stack(merged, dim=-1).reshape(b, n)
+
+
+def sort_blocks_merge_ref(offsets: torch.Tensor, lengths: torch.Tensor,
+                          carry: torch.Tensor, block: int,
+                          chunk: int = MERGE_CHUNK,
+                          items: int = MERGE_ITEMS):
+    """The algorithm of ``sort.bitonic_sort``'s CUDA kernels in plain
+    PyTorch, for the CPU tests: each entry packed into one 64-bit word
+    (the key above its row position: the signed view of the kernel's
+    unsigned word, whose key has its sign bit flipped, so the two order
+    alike), blocks of ``block`` words sorted by the bitonic network,
+    merge passes with the kernel's merge-path cuts until one run is the
+    row, then the offsets from the words and the carries gathered by
+    position. ``block`` is a power of two <= n; the kernel takes
+    ``min(n, SORT_BLOCK)``. Used by the tests only; equals
+    :func:`sort_ref`."""
+    b, n = offsets.shape
+    if block & (block - 1) or not 1 <= block <= n:
+        raise ValueError(f"block {block} must be a power of two <= {n}")
+    pos = torch.arange(n, dtype=torch.int64, device=offsets.device)
+    words = (offsets.to(torch.int64) << 32) | pos
+    words = _bitonic_network(words.reshape(b, n // block, block))
+    words = words.reshape(b, n)
+    run = block
+    while run < n:
+        words = _merge_pass(words, run, chunk, items)
+        run *= 2
+    order = words & 0xFFFFFFFF
+    return ((words >> 32).to(torch.int32), lengths.gather(-1, order),
+            carry.gather(-1, order))
+
+
 def coalesce_ref(offsets: torch.Tensor, lengths: torch.Tensor):
     """Coalesce offset-sorted ``[b, n]`` rows — the plain version of
     ``coalesce_kernel.coalesce`` in its cumsum/scatter form: run ids

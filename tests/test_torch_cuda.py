@@ -77,6 +77,61 @@ def test_cuda_bitonic_sort_equals_plain(cuda, n, batch):
         assert torch.equal(g, w)
 
 
+INT32_MIN = -(1 << 31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["extremes", "all_equal", "all_pad",
+                                  "descending"])
+@pytest.mark.parametrize("n", [4096, 8192, 32768])   # 1, 2 and 8 blocks
+@pytest.mark.parametrize("batch", [1, 16])
+def test_cuda_bitonic_sort_edge_keys(cuda, case, n, batch):
+    """Keys INT32_MIN, -1, 0 and PAD_OFFSET; all-equal keys (the carries
+    keep their order: stability); all-padding rows; a descending row."""
+    rng = np.random.default_rng(n + batch)
+    if case == "extremes":
+        offs = rng.choice(np.asarray([INT32_MIN, -1, 0, PAD], np.int64),
+                          size=(batch, n)).astype(np.int32)
+    elif case == "all_equal":
+        offs = np.full((batch, n), -1, np.int32)
+    elif case == "all_pad":
+        offs = np.full((batch, n), PAD, np.int32)
+    else:
+        offs = np.tile(np.arange(n, 0, -1, dtype=np.int32) - n // 2,
+                       (batch, 1))
+    lens = np.tile(np.arange(n, dtype=np.int32), (batch, 1))
+    carry = rng.integers(INT32_MIN, 1 << 31, size=(batch, n),
+                         dtype=np.int64).astype(np.int32)
+    args = [_t(x).to(cuda) for x in (offs, lens, carry)]
+    got = t_sort.bitonic_sort(*args)
+    for g, w in zip(got, t_ref.sort_ref(*args)):
+        assert torch.equal(g, w)
+    if case in ("all_equal", "all_pad"):
+        assert torch.equal(got[1], args[1])
+
+
+@pytest.mark.cuda
+def test_cuda_fused_sort_pack_at_the_tam_drain_shape(cuda):
+    """[16, 32768] lists (the TAM drain's, eight sort blocks a row) into
+    [16, 262144] windows: window and mask equal the plain version."""
+    rng = np.random.default_rng(16)
+    rows = [_drain_list(rng, 32768, 6000, 262144 * (i + 1), dup=i)
+            for i in range(16)]
+    dcap = max(r[3].size for r in rows)
+    data = np.stack([np.pad(r[3], (0, dcap - r[3].size)) for r in rows])
+    args = [_t(np.stack([r[k] for r in rows])).to(cuda) for k in range(3)]
+    d = _t(data).to(cuda)
+    bases = torch.tensor([262144 * (i + 1) for i in range(16)],
+                         dtype=torch.int32, device=cuda)
+    before = t_fr.fused_sort_pack.launches
+    got = t_fr.fused_sort_pack(*args, d, bases, 262144)
+    assert t_fr.fused_sort_pack.launches == before + 1
+    want = t_ref.fused_sort_pack_ref(*args, d, bases, 262144)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1].sum()) > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,batch", [(8, 1), (100, 3), (4096, 7),
                                      (32768, 16)])
@@ -169,6 +224,53 @@ def test_cuda_zero_skip_decode_of_scattered_positions(cuda):
     v, p = _t(vals).to(cuda), _t(pos).to(cuda)
     assert torch.equal(t_fr.zero_skip_decode(v, p),
                        t_ref.zero_skip_decode_ref(v, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_absent", "dense", "many_tiles",
+                                  "short_rows", "float_bits", "unaligned"])
+def test_cuda_zero_skip_decode_cases(cuda, case):
+    """Rows with no position (all -1), fully dense rows, rows spanning
+    many of the scatter's 4096-entry tiles, rows shorter than one tile
+    (several rows a tile), float32 -0.0 and NaN payloads moved as bits,
+    and (vals, pos) views that do not start on 16 bytes; positions in
+    any order, some negative (dropped)."""
+    rng = np.random.default_rng(len(case))
+    rows, n = {"many_tiles": (3, 65536), "short_rows": (37, 16)}.get(
+        case, (5, 8192))
+    pos = np.stack([rng.permutation(n) for _ in range(rows)]).astype(
+        np.int32)
+    if case == "all_absent":
+        pos[:] = -1
+    elif case != "dense":
+        drop = rng.random((rows, n)) < 0.4
+        pos[drop] = rng.choice([-1, -7, INT32_MIN], size=int(drop.sum()))
+    vals = rng.integers(INT32_MIN, 1 << 31, size=(rows, n),
+                        dtype=np.int64).astype(np.int32)
+    if case == "float_bits":
+        f = vals.view(np.float32)
+        f[:, ::3] = np.float32(-0.0)
+        f[:, 1::5] = np.nan
+    v, p = _t(vals).to(cuda), _t(pos).to(cuda)
+    if case == "float_bits":
+        v = v.view(torch.float32)
+    if case == "unaligned":
+        v = torch.cat([v.reshape(-1), v.reshape(-1)[:1]])[1:].reshape(
+            rows, n)
+        p = torch.cat([p.reshape(-1)[:3], p.reshape(-1)])[3:].reshape(
+            rows, n)
+        assert v.data_ptr() % 16 and p.data_ptr() % 16
+    before = t_fr.zero_skip_decode.launches
+    got = t_fr.zero_skip_decode(v, p)
+    assert t_fr.zero_skip_decode.launches == before + 1
+    want = t_ref.zero_skip_decode_ref(v, p)
+    assert got.dtype == v.dtype
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case == "all_absent":
+        assert not bool(got.view(torch.int32).any())
+    if case == "dense":
+        assert torch.equal(got.view(torch.int32).sort(1).values,
+                           v.view(torch.int32).sort(1).values)
 
 
 @pytest.mark.cuda
