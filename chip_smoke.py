@@ -8,9 +8,10 @@ holds each kernel against its plain PyTorch version at the shapes the
 main path gives it (exact equality for the I/O kernels, which move
 words and do no arithmetic on them; for attention every element within
 5e-3 (f32) or 8e-3 (bf16, one bf16 ulp) and a relative L2 distance of at
-most 1e-2, with planted faults shown to fail that limit), checks small
-writes and reads with every slow-hop codec on the card against the CPU,
-then drives the main paths:
+most 1e-2, with planted faults shown to fail that limit; the zero-skip
+pair also at 1-, 2- and 8-byte elements), checks small writes and reads
+with every slow-hop codec on the card against the CPU (rle also on
+bfloat16 and uint8 payloads), then drives the main paths:
 
 * on the BTIO deployment (16 nodes x 64 ranks, one global aggregator per
   node, a 512 MiB file, 32 rounds of 1 MiB windows) with
@@ -223,13 +224,20 @@ def drain_inputs(torch, rows, cap, live, out_len, dcap, gen, dev):
     return off, ln, st, data, base.to(torch.int32), covered
 
 
-def sparse_rows(torch, rows, n, gen, dev):
-    """Nonzero int32 rows in which half of the 8-element cells are zero
-    (a sparse checkpoint page, the payload the rle codec exists for)."""
-    x = torch.randint(1, 2**31 - 1, (rows, n), generator=gen, device=dev,
-                      dtype=torch.int32)
+def sparse_rows(torch, rows, n, gen, dev, dtype=None):
+    """Nonzero rows in which half of the 8-element cells are zero (a
+    sparse checkpoint page, the payload the rle codec exists for): int32
+    by default; of another ``dtype`` small nonzero values, and for a
+    float some -0.0 (a zero) and NaN (a nonzero) besides."""
+    dtype = torch.int32 if dtype is None else dtype
+    top = 2**31 - 1 if dtype == torch.int32 else 256
+    x = torch.randint(1, top, (rows, n), generator=gen, device=dev,
+                      dtype=torch.int32).to(dtype)
     keep = torch.rand(rows, n // 8, 1, generator=gen, device=dev) < 0.5
     x.view(rows, n // 8, 8).mul_(keep)
+    if dtype.is_floating_point:
+        x.view(rows, n // 8, 8)[:, ::7, 3] = -0.0
+        x[:, 5::1001] = float("nan")
     return x
 
 
@@ -315,10 +323,10 @@ def phase_kernels(torch, dev, reps):
 
         err = max_abs_err(torch, got, plain())
         require(err == 0, f"fused_sort_pack [{rows}, {cap}] != plain")
+        # the sort's compares, then one max a position (the walk)
         b, by = bound(3 * rows * cap * 4 + covered * 4
                       + 2 * rows * out_len * 4,
-                      rows * cap * math.log2(cap)
-                      + rows * out_len * math.log2(cap))
+                      rows * cap * math.log2(cap) + rows * out_len)
         rec = {"shape": [rows, cap], "out_len": out_len, "dcap": dcap,
                "max_abs_err": err,
                "ms": timed(lambda: fused_round.fused_sort_pack(
@@ -332,58 +340,88 @@ def phase_kernels(torch, dev, reps):
 
     # the rle wire: two-phase write buckets [1024 ranks x 16, 131072],
     # TAM write buckets [16 groups x 16, 262144], a read's windows
-    # [16, 262144]; encode reads n words and writes 2n, decode the reverse
-    for rows, n in ((16384, 131072), (256, 262144), (16, 262144)):
-        x = sparse_rows(torch, rows, n, gen, dev)
-        chunk = max(1, (1 << 27) // n)   # the plain versions' int64 temps
-        spans = [slice(i, i + chunk) for i in range(0, rows, chunk)]
-        vals, pos = fused_round.zero_skip_encode(x)
-        err_e = max(max_abs_err(torch, (vals[c], pos[c]),
-                                ref.zero_skip_encode_ref(x[c]))
-                    for c in spans)
-        require(err_e == 0, f"zero_skip_encode [{rows}, {n}] != plain")
-        b, by = bound(12 * rows * n, 2 * rows * n)
-        rec = {"shape": [rows, n], "nonzero": int((x != 0).sum().item()),
-               "max_abs_err": err_e,
-               "ms": timed(lambda: fused_round.zero_skip_encode(x)),
-               "plain_ms": timed(lambda: [ref.zero_skip_encode_ref(x[c])
-                                          for c in spans],
-                                 max(2, reps // 4)),
-               "library_ms": None, "bound_ms": b, "bound_by": by}
-        emit({"phase": "kernel", "kernel": "zero_skip_encode", **rec})
-        results.setdefault("zero_skip_encode", rec)
-
-        out = fused_round.zero_skip_decode(vals, pos)
-        require(torch.equal(out, x), f"zero_skip [{rows}, {n}] round trip")
-        nonzero = rec["nonzero"]
-        del x
-        err_d = max(max_abs_err(torch, (out[c],),
-                                (ref.zero_skip_decode_ref(vals[c],
-                                                          pos[c]),))
-                    for c in spans)
-        require(err_d == 0, f"zero_skip_decode [{rows}, {n}] != plain")
-        del out
-        torch.cuda.empty_cache()
-        # the least traffic: pos read whole, vals read where pos >= 0
-        # (the row's nonzeros), the output written once
-        b, by = bound(4 * rows * n + 4 * nonzero + 4 * rows * n, rows * n)
-        rec = {"shape": [rows, n], "nonzero": nonzero, "max_abs_err": err_d,
-               "ms": timed(lambda: fused_round.zero_skip_decode(vals, pos)),
-               "plain_ms": timed(lambda: [ref.zero_skip_decode_ref(
-                   vals[c], pos[c]) for c in spans], max(2, reps // 4)),
-               "bound_ms": b, "bound_by": by}
-        # library: one scatter_ into a zeroed [rows, n + 1] buffer whose
-        # last column takes pos -1, the index built inside the timing
-        stage = torch.empty((rows, n + 1), dtype=vals.dtype, device=dev)
-        rec["library_ms"] = timed(lambda: stage.zero_().scatter_(
-            1, torch.where(pos >= 0, pos, n).to(torch.int64), vals))
-        rec["library"] = "torch.where + scatter_ into [rows, n + 1]"
-        emit({"phase": "kernel", "kernel": "zero_skip_decode", **rec})
-        results.setdefault("zero_skip_decode", rec)
-        del vals, pos, stage
-        torch.cuda.empty_cache()
+    # [16, 262144], int32 as on the paths; then the read's shape at the
+    # other widths (uint8, bfloat16, float64)
+    for rows, n, dtype in ((16384, 131072, torch.int32),
+                           (256, 262144, torch.int32),
+                           (16, 262144, torch.int32),
+                           (16, 262144, torch.uint8),
+                           (16, 262144, torch.bfloat16),
+                           (16, 262144, torch.float64)):
+        for rec in zero_skip_case(torch, fused_round, ref, rows, n, dtype,
+                                  gen, dev, timed, reps):
+            results.setdefault(rec["kernel"], rec)
     del flush
     return results
+
+
+def bits(torch, t):
+    """``t`` viewed as the integers of its width (its bits)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def zero_skip_case(torch, fused_round, ref, rows, n, dtype, gen, dev, timed,
+                   reps):
+    """Both zero-skip kernels at ``[rows, n]`` of ``dtype``, bit for bit
+    against their plain versions and through a round trip, timed beside
+    their width-aware bounds (w bytes an element): encode reads n
+    elements and writes n values and n int32 positions, rows * n * (2w +
+    4); decode reads pos whole and vals where pos >= 0 (the nonzeros) and
+    writes the output once, rows * n * (4 + w) + nonzero * w."""
+    x = sparse_rows(torch, rows, n, gen, dev, dtype)
+    w = x.element_size()
+    tag = f"[{rows}, {n}] {str(dtype).split('.')[-1]}"
+    chunk = max(1, (1 << 27) // n)   # the plain versions' int64 temps
+    spans = [slice(i, i + chunk) for i in range(0, rows, chunk)]
+    vals, pos = fused_round.zero_skip_encode(x)
+    err_e = max(max_abs_err(torch, (bits(torch, vals[c]), pos[c]),
+                            (bits(torch, v), p))
+                for c in spans
+                for v, p in (ref.zero_skip_encode_ref(x[c]),))
+    require(err_e == 0, f"zero_skip_encode {tag} != plain")
+    nonzero = int(ref.zero_skip_nonzero(x).sum().item())
+    b, by = bound(rows * n * (2 * w + 4), 2 * rows * n)
+    base = {"shape": [rows, n], "dtype": str(dtype).split(".")[-1],
+            "nonzero": nonzero}
+    enc = {"kernel": "zero_skip_encode", **base, "max_abs_err": err_e,
+           "chunks": fused_round.encode_chunks(
+               rows, n, torch.cuda.get_device_properties(dev)
+               .multi_processor_count),
+           "ms": timed(lambda: fused_round.zero_skip_encode(x)),
+           "plain_ms": timed(lambda: [ref.zero_skip_encode_ref(x[c])
+                                      for c in spans], max(2, reps // 4)),
+           "library_ms": None, "bound_ms": b, "bound_by": by}
+    emit({"phase": "kernel", **enc})
+
+    out = fused_round.zero_skip_decode(vals, pos)
+    want = torch.where(ref.zero_skip_nonzero(x), bits(torch, x), 0)
+    require(torch.equal(bits(torch, out), want),
+            f"zero_skip {tag} round trip")
+    del x, want
+    err_d = max(max_abs_err(torch, (bits(torch, out[c]),),
+                            (bits(torch, ref.zero_skip_decode_ref(
+                                vals[c], pos[c])),))
+                for c in spans)
+    require(err_d == 0, f"zero_skip_decode {tag} != plain")
+    del out
+    torch.cuda.empty_cache()
+    b, by = bound(rows * n * (4 + w) + nonzero * w, rows * n)
+    dec = {"kernel": "zero_skip_decode", **base, "max_abs_err": err_d,
+           "ms": timed(lambda: fused_round.zero_skip_decode(vals, pos)),
+           "plain_ms": timed(lambda: [ref.zero_skip_decode_ref(
+               vals[c], pos[c]) for c in spans], max(2, reps // 4)),
+           "bound_ms": b, "bound_by": by}
+    # library: one scatter_ into a zeroed [rows, n + 1] buffer whose last
+    # column takes pos -1, the index built inside the timing
+    stage = torch.empty((rows, n + 1), dtype=vals.dtype, device=dev)
+    dec["library_ms"] = timed(lambda: bits(torch, stage).zero_().scatter_(
+        1, torch.where(pos >= 0, pos, n).to(torch.int64), bits(torch, vals)))
+    dec["library"] = "torch.where + scatter_ into [rows, n + 1]"
+    emit({"phase": "kernel", **dec})
+    del vals, pos, stage
+    torch.cuda.empty_cache()
+    return enc, dec
 
 
 def attention_work(torch, b, sq, hq, skv, causal, window, q_offset,
@@ -755,7 +793,8 @@ def phase_small_codecs(torch, dev):
     float32 payload) and reads with and without rle, fused and unfused,
     both methods: the card equals the CPU — bytes and every stats key
     for rle and the reads, within one int8 step of the largest scale
-    (and the 5e-2 band against ``write_reference``) for ef-int8."""
+    (and the 5e-2 band against ``write_reference``) for ef-int8; then
+    the fused rle writes and reads of ``narrow_rle``."""
     import numpy as np
 
     from repro_torch.core import (IOConfig, RankMesh, contiguous_layout,
@@ -820,7 +859,69 @@ def phase_small_codecs(torch, dev):
                     require(np.array_equal(got[p, :n].numpy(), D[p, :n]),
                             f"small read {name}/{codec}/{fusion}: rank {p}")
                 counts["reads"] += 1
+    counts.update(narrow_rle(torch, dev, O, L, C, D, mesh, layout))
     emit({"phase": "small_codecs_vs_cpu", **counts, "ok": True})
+
+
+def raw(torch, t) -> bytes:
+    """The bytes of ``t``, in order."""
+    return t.detach().cpu().contiguous().view(-1).view(
+        torch.uint8).numpy().tobytes()
+
+
+def narrow_rle(torch, dev, O, L, C, D, mesh, layout):
+    """Fused rle writes and reads of 2- and 1-byte payloads (bfloat16 and
+    uint8 cells of ``D``, zero where ``D`` is): every write's file equals
+    ``write_reference`` (on the payload's bits) and the CPU run byte for
+    byte, with equal stats; every read of that file returns each rank's
+    payload, equal to the CPU read; the zero-skip kernels ran."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import (IOConfig, make_tam_read, make_tam_write,
+                                  make_twophase_read, make_twophase_write,
+                                  write_reference)
+    bf = torch.from_numpy(D).to(torch.float32).to(torch.bfloat16)
+    u8 = torch.from_numpy(np.where(D == 0, 0, D % 255 + 1).astype(np.uint8))
+    counts = {"narrow_rle_writes": 0, "narrow_rle_reads": 0}
+    for P in (bf, u8):
+        label = str(P.dtype).split(".")[-1]
+        P_bits = bits(torch, P).numpy()
+        ref = write_reference(layout, O, L, C, P_bits)
+        cfg = IOConfig(req_cap=O.shape[1], data_cap=P.shape[1],
+                       coalesce_cap=64, cb_buffer_size=4096, pipeline=True,
+                       pipeline_depth=2, kernel_fusion="fused_round",
+                       slow_hop_codec="rle")
+        kernels.reset_launch_counts()
+        for name, mk, kw in (("twophase", make_twophase_write, {}),
+                             ("tam", make_tam_write, {"use_kernels": True})):
+            tag = f"small {name}/rle/{label}"
+            f_gpu, s_gpu = mk(mesh, layout, cfg, device=dev, **kw)(O, L, C, P)
+            f_cpu, s_cpu = mk(mesh, layout, cfg, device="cpu",
+                              **kw)(O, L, C, P)
+            require(f_gpu.dtype == P.dtype, f"{tag}: file dtype")
+            require(raw(torch, f_gpu) == ref.tobytes() == raw(torch, f_cpu),
+                    f"{tag}: file != write_reference / cpu")
+            for k in s_cpu:
+                require(s_gpu[k].cpu().tolist() == s_cpu[k].tolist(),
+                        f"{tag}: stats {k} card != cpu")
+            counts["narrow_rle_writes"] += 1
+        file = torch.from_numpy(ref).view(P.dtype).reshape(4, -1)
+        for name, mk in (("twophase", make_twophase_read),
+                         ("tam", make_tam_read)):
+            tag = f"small read {name}/rle/{label}"
+            got = mk(mesh, layout, cfg, device=dev)(O, L, C, file).cpu()
+            want = mk(mesh, layout, cfg, device="cpu")(O, L, C, file)
+            require(raw(torch, got) == raw(torch, want), f"{tag}: card != cpu")
+            for p in range(P.shape[0]):
+                n = int(L[p].sum())
+                require(raw(torch, got[p, :n]) == raw(torch, P[p, :n]),
+                        f"{tag}: rank {p}")
+            counts["narrow_rle_reads"] += 1
+        seen = kernels.launch_counts()
+        require(seen["zero_skip_encode"] > 0 and seen["zero_skip_decode"] > 0,
+                f"rle {label}: the zero-skip kernels never ran")
+    return counts
 
 
 STALL = "Command Buffer Full"   # the profiler's record of a blocked launch
@@ -850,7 +951,8 @@ STEPS = {"repro_torch.core.rounds": ("_compact_active", "repack_sorted",
                                      "rle_zero_skip_decode")}
 PORT_KERNELS = ("sort_blocks_kernel", "sort_merge_kernel",
                 "coalesce_rows_kernel", "pack_tiles_kernel",
-                "zero_skip_encode_kernel", "zero_skip_zero_kernel",
+                "zero_skip_encode_rows_kernel",
+                "zero_skip_encode_chunks_kernel", "zero_skip_zero_kernel",
                 "zero_skip_scatter_kernel", "flash_attention_kernel",
                 "flash_tc_prefill_kernel", "flash_split_decode_kernel",
                 "flash_split_merge_kernel")

@@ -13,11 +13,27 @@ Three jnp behaviours have no one-call torch counterpart:
 * ``jnp.argsort(key, stable=True)`` of a 0/1 key is a stable partition:
   :func:`stable_partition_order` computes it with two cumsums.
 
+And one torch behaviour the reference does not have: on the CPU,
+``scatter_`` of bfloat16 turns a NaN's bits into 0xffff. Scatters that
+must move payload bits unchanged scatter :func:`bits_of` the tensors.
+
 Every helper works on the LAST axis and treats leading axes as a batch.
 """
 from __future__ import annotations
 
 import torch
+
+
+_INT_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}
+
+
+def bits_of(x: torch.Tensor) -> torch.Tensor:
+    """A float tensor viewed as the signed integers of its width (its
+    bits); any other tensor as it is."""
+    if x.dtype.is_floating_point:
+        return x.view(_INT_OF_WIDTH[x.element_size()])
+    return x
 
 
 def exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -62,7 +78,7 @@ def scatter_new(n: int, fill, idx: torch.Tensor, vals: torch.Tensor,
                 * n).reshape(*lead, 1) if lead else 0
     flat_idx = torch.where(ok, idx + row_base, rows * n).reshape(-1)
     out = torch.full((rows * n + 1,), fill, dtype=dtype, device=idx.device)
-    out.scatter_(0, flat_idx, vals.reshape(-1).to(dtype))
+    bits_of(out).scatter_(0, flat_idx, bits_of(vals.reshape(-1).to(dtype)))
     return out[:rows * n].view(*lead, n)
 
 

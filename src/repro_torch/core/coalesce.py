@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core._tensor import repeat_index, scatter_new
+from repro_torch.core._tensor import bits_of, repeat_index, scatter_new
 from repro_torch.core.requests import PAD_OFFSET, RequestList, mask_invalid
 
 _INT32_MAX = 2**31 - 1
@@ -94,9 +94,9 @@ def pack_data(r: RequestList, starts: torch.Tensor, data: torch.Tensor,
            - _base_col(base, data))
     del req_of, within
     live = eidx < lengths.sum(dim=-1, keepdim=True)
-    vals = data.gather(-1, src.clamp_(0, dcap - 1))
+    vals = bits_of(data).gather(-1, src.clamp_(0, dcap - 1))
     dst = torch.where(live, dst, out_len)
-    return scatter_new(out_len, 0, dst, vals)
+    return scatter_new(out_len, 0, dst, vals).view(data.dtype)
 
 
 def unpack_data(r: RequestList, starts: torch.Tensor, buf: torch.Tensor,
@@ -112,9 +112,9 @@ def unpack_data(r: RequestList, starts: torch.Tensor, buf: torch.Tensor,
     live = eidx < lengths.sum(dim=-1, keepdim=True)
     pos = torch.where(live, pos, 0).clamp_(0, buf.shape[-1] - 1)
     # one buffer may serve every row of a batch
-    vals = buf.expand(*pos.shape[:-1], buf.shape[-1]).gather(-1, pos)
-    return torch.where(live, vals, torch.zeros((), dtype=buf.dtype,
-                                               device=buf.device))
+    vals = bits_of(buf).expand(*pos.shape[:-1], buf.shape[-1]).gather(-1, pos)
+    return torch.where(live, vals.view(buf.dtype),
+                       torch.zeros((), dtype=buf.dtype, device=buf.device))
 
 
 def request_starts(r: RequestList) -> torch.Tensor:

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core._tensor import stable_partition_order
+from repro_torch.core._tensor import bits_of, stable_partition_order
 
 # Wire-format constants of the zero-run byte codec: a u32 raw-length
 # header, then (u32 literal_len, u32 zero_len, literal bytes) records.
@@ -175,9 +175,9 @@ class RleCodec(Codec):
         # front in position order (the reference's stable argsort)
         order = stable_partition_order(nz)
         live = nz.gather(-1, order)
-        vals = torch.where(live, data.gather(-1, order),
-                           torch.zeros((), dtype=data.dtype,
-                                       device=data.device))
+        vals = torch.where(live, bits_of(data).gather(-1, order).view(
+            data.dtype), torch.zeros((), dtype=data.dtype,
+                                     device=data.device))
         pos = torch.where(live, order, -1).to(torch.int32)
         return (vals, pos), state
 
@@ -189,7 +189,7 @@ class RleCodec(Codec):
         idx = torch.where(idx >= 0, idx, cap)        # invalid -> pad slot
         out = torch.zeros((v2.shape[0], cap + 1), dtype=vals.dtype,
                           device=vals.device)
-        out.scatter_(1, idx, v2)
+        bits_of(out).scatter_(1, idx, bits_of(v2))   # NaN bits unchanged
         return out[:, :cap].reshape(vals.shape)
 
     def modeled_ratio(self, zero_fraction, total_bytes):

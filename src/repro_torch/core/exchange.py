@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core._tensor import (exclusive_cumsum, repeat_index,
+from repro_torch.core._tensor import (bits_of, exclusive_cumsum, repeat_index,
                                       scatter_new)
 from repro_torch.core.requests import PAD_OFFSET, RequestList
 
@@ -167,7 +167,7 @@ def repack_sorted(r_sorted: RequestList, starts: torch.Tensor,
            + (eidx - new_starts.gather(-1, req_of)))
     del req_of
     src = src.clamp_(0, data_flat.shape[-1] - 1)
-    vals = data_flat.gather(-1, src)
+    vals = bits_of(data_flat).gather(-1, src).view(data_flat.dtype)
     return torch.where(eidx < total, vals,
                        torch.zeros((), dtype=data_flat.dtype,
                                    device=data_flat.device))

@@ -3,10 +3,11 @@
 * ``sort.bitonic_sort`` — batched shared-memory bitonic sort (CUDA);
 * ``coalesce_kernel.coalesce`` — batched run coalescing (CUDA);
 * ``fused_round.fused_sort_pack`` — the per-round drain: sort + window
-  and mask from one search per position (CUDA, two launches);
+  and mask, each tile walking the sorted list once (CUDA);
 * ``fused_round.zero_skip_encode`` / ``zero_skip_decode`` — the rle
-  codec's wire on the slow hop: per-row zero-skip compaction and its
-  inverse scatter (CUDA);
+  codec's wire on the slow hop: per-row zero-skip compaction (chunks
+  chained by a decoupled look-back) and its inverse scatter, at every
+  element width of 1, 2, 4 and 8 bytes (CUDA);
 * ``pack.pack`` — gather-form pack of sorted requests into a window
   (CUDA, the drain's tile kernel without sort and mask);
 * ``flash.flash_attention_fused`` — online-softmax GQA attention with

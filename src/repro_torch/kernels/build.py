@@ -40,8 +40,8 @@ _SIGNATURES = {
     "repro_coalesce": (_P, _P, _P, _P, _P, _I, _I, _P),
     "repro_fused_sort_pack": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _LL, _LL, _I, ctypes.c_ulonglong, _P),
-    "repro_zero_skip_encode": (_P, _P, _P, _I, _I, _I, _P),
-    "repro_zero_skip_decode": (_P, _P, _P, _I, _I, _P),
+    "repro_zero_skip_encode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_zero_skip_decode": (_P, _P, _P, _I, _I, _I, _P),
     "repro_pack": (_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _F, _I, _I, _F, _I, _I, _I, _I, _P),

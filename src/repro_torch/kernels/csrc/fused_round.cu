@@ -3,10 +3,10 @@
 // pl.when(program_id == 0), then one output tile per grid step).
 //
 // Per row (one drain window), it sorts the unsorted merged request list
-// by offset, then for every output position p binary-searches the last
-// offset <= p + base and, from that single search, writes both the
-// gathered payload and the coverage mask (1 where covered, else 0, in
-// the payload's type), exactly as the TPU kernel's tile body does.
+// by offset, then writes every output position's gathered payload and
+// coverage mask (1 where covered, else 0, in the payload's type) from the
+// last request with offset <= p + base, exactly as the TPU kernel's tile
+// body does.
 //
 // Design: the TPU kernel sorts once and keeps the sorted metadata in
 // VMEM scratch across its sequential grid. CUDA blocks run concurrently
@@ -14,14 +14,14 @@
 // launches (bitonic.cuh: block sorts and merges over many CTAs a row;
 // offsets, carrying lengths and starts) into scratch the wrapper
 // allocates, then a tile kernel over grid (out_len / TILE, rows), on one
-// stream. In a tile each thread binary-searches its row's sorted offsets
-// (read through the read-only cache; the metadata of a row is at most
-// 384 KiB and stays in L2) once per output position. Row bases are
-// 64-bit: rows x out_len reaches 2^28 and the payload 2^31 elements.
+// stream. Each tile walks the row's sorted list once (pack_tiles.cuh: two
+// searches for the tile's run of requests, their heads in shared memory,
+// a max-scan that gives each position its request). Row bases are 64-bit:
+// rows x out_len reaches 2^28 and the payload 2^31 elements.
 //
 // What bounds it: at deployment size the tile kernel's device-memory
-// traffic (one payload read and two window writes per position) is
-// the floor (pack_tiles.cuh, the tile body shared with pack.cu).
+// traffic (one payload read per covered position and two window writes
+// per position) is the floor; the sort adds its own launches before it.
 #include "bitonic.cuh"
 #include "pack_tiles.cuh"
 

@@ -4,13 +4,11 @@
 //
 // The requests arrive offset-sorted and non-overlapping, so this is the
 // tile kernel of fused_sort_pack (pack_tiles.cuh) with no sort launch
-// and no mask: one launch over out_len / 4096 tiles of one row. Each
-// thread searches the request metadata (at most 32768 x 12 B, resident
-// in L2) once per output position.
+// and no mask: one launch over out_len / 4096 tiles of one row, each
+// tile walking the sorted list once (two searches, heads, a max-scan).
 //
-// What bounds it: one payload read and one window write per position in
-// device memory; the log2(cap) dependent loads of the search keep it
-// latency-bound above that floor.
+// What bounds it: one payload read per covered position and one window
+// write per position in device memory.
 #include "pack_tiles.cuh"
 
 // offsets/lengths/starts: int32 [cap], offset-sorted, non-overlapping,

@@ -1,68 +1,203 @@
 // The gather-form pack tile, shared by fused_sort_pack (fused_round.cu)
 // and pack (pack.cu).
 //
-// For every output position p of a window, binary-search the last
-// offset <= p + base in the row's offset-sorted requests and, from that
-// single search, write the gathered payload and (when a mask buffer is
-// given) the coverage mask: 1 where covered, else 0, in the payload's
-// type, exactly as the TPU kernels' tile body (pack.py::_pack_tile)
-// does. One CTA per (tile of kTile positions, row); each thread searches
-// the row's metadata through the read-only cache. Row bases are 64-bit:
-// rows x out_len reaches 2^28 and the payload 2^31 elements.
+// Output position p of a window (p = position + base in int32, as the TPU
+// computes iota + tile_start + base) takes r, the last request of the
+// row's offset-sorted list with offset <= p, and from it the gathered
+// payload and (when a mask buffer is given) the coverage mask: 1 where
+// p - off[r] < len[r], else 0, in the payload's type, exactly as the TPU
+// kernels' tile body (pack.py::_pack_tile) does. Only r decides coverage,
+// not an earlier, longer request; zero-length requests and PAD_OFFSET
+// padding take part like any other.
 //
-// What bounds it: device-memory traffic (one payload read and one or two
-// window writes per position) is the floor; the search adds log2(cap)
-// dependent L2 loads per position, so the kernel is latency-bound above
-// that floor. Walking the sorted list once per tile instead of searching
-// per position is later work.
+// One CTA per (tile of kTile positions, row) walks the sorted list once
+// for its tile, in place of one binary search per position:
+// 1. the carry-in: warps 0 and 1 find, by 32-ary searches in device
+//    memory (3 rounds of one load a lane at cap 32768), r0 = the last
+//    request with offset <= p_first and r_end = the last with offset <=
+//    p_first + kTile - 1;
+// 2. heads: each request of the run (r0, r_end], whose offsets fall inside
+//    the tile, writes its index at head[off - p_first] in shared memory;
+//    among equal offsets only the last (in the sort's stable order) writes;
+// 3. an inclusive max-scan over the tile's heads, seeded with r0, gives
+//    every position its r (16 positions a thread, a warp scan of the
+//    threads' maxima, one over the warps);
+// 4. each position p computes within = p - off[r] and covered = within <
+//    len[r], gathers data[start[r] + within] (neighbouring positions of a
+//    request read neighbouring elements) and writes the window and the
+//    mask, neighbouring threads on neighbouring positions.
+// A tile whose p range wraps past 2^31 - 1 is not monotonic in p; there
+// each position searches the list on its own, as the TPU does.
+//
+// Row bases are 64-bit: rows x out_len reaches 2^28 and the payload 2^31
+// elements.
+//
+// What bounds it: device memory, one payload read per covered position and
+// one or two window writes per position; the walk adds two searches and
+// the row's requests once per tile.
 #pragma once
 
+#include <climits>
 #include <cstring>
 
 #include "common.cuh"
 
 namespace {
 
+constexpr int kPackThreads = 256;
+constexpr int kPackItems = repro::kTile / kPackThreads;   // 16 a thread
+
+// Shared-memory index of tile position i, one pad word every 32, so that
+// a thread's 16 consecutive positions and a warp's 32 consecutive ones
+// both fall on distinct banks.
+__device__ __forceinline__ int tile_slot(int i) { return i + (i >> 5); }
+
+// The number of off[0, cap) (sorted) that are <= q, found by the calling
+// warp: each round each lane tests one cut, a ballot keeps the range
+// between the last cut still <= q and the first that is not.
+__device__ __forceinline__ int count_le(const int* __restrict__ off,
+                                        int cap, int q, int lane) {
+  int lo = 0, hi = cap;   // the count lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int i = lo + lane * step;
+    const bool le = i < hi && __ldg(off + i) <= q;
+    const int c = __popc(__ballot_sync(0xffffffffu, le));
+    if (c == 0) {
+      hi = lo;
+    } else {
+      const int next_hi = lo + c * step;
+      lo += (c - 1) * step + 1;
+      hi = next_hi < hi ? next_hi : hi;
+    }
+  }
+  return lo;
+}
+
+// The window (and mask) element of position p from request r.
 template <typename T>
-__global__ void pack_tiles_kernel(const int* __restrict__ s_off,
-                                  const int* __restrict__ s_len,
-                                  const int* __restrict__ s_st,
-                                  const T* __restrict__ data,
-                                  const int* __restrict__ base, T* win,
-                                  T* mask, int cap, long long dcap,
-                                  long long out_len, T one) {
+__device__ __forceinline__ void pack_one(const int* __restrict__ off,
+                                         const int* __restrict__ len,
+                                         const int* __restrict__ st,
+                                         const T* __restrict__ d,
+                                         long long dcap, int p, int r, T one,
+                                         T& v, T& c) {
+  v = T(0);
+  c = T(0);
+  if (r >= 0) {
+    // int32 as on the TPU: p - off[r] wraps
+    const int within = static_cast<int>(
+        static_cast<unsigned>(p) - static_cast<unsigned>(__ldg(off + r)));
+    if (within < __ldg(len + r)) {
+      long long src = static_cast<long long>(__ldg(st + r)) + within;
+      src = src < 0 ? 0 : (src >= dcap ? dcap - 1 : src);
+      v = d[src];
+      c = one;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kPackThreads)
+pack_tiles_kernel(const int* __restrict__ s_off,
+                  const int* __restrict__ s_len,
+                  const int* __restrict__ s_st, const T* __restrict__ data,
+                  const int* __restrict__ base, T* win, T* mask, int cap,
+                  long long dcap, long long out_len, T one) {
+  __shared__ int s_r[repro::kTile + repro::kTile / 32];  // heads, then r
+  __shared__ int s_warp[kPackThreads / 32];
+  __shared__ int s_cut[2];
   const long long row = blockIdx.y;
   const int* off = s_off + row * cap;
   const int* len = s_len + row * cap;
   const int* st = s_st + row * cap;
   const T* d = data + row * dcap;
-  T* w = win + row * out_len;
-  T* m = mask == nullptr ? nullptr : mask + row * out_len;
-  const int b = base[row];
-  const long long tile0 = static_cast<long long>(blockIdx.x) * repro::kTile;
-  for (int i = threadIdx.x; i < repro::kTile; i += blockDim.x) {
-    const long long pos = tile0 + i;
-    // the TPU computes iota + tile_start + base in int32
-    const int p = static_cast<int>(static_cast<unsigned>(pos) +
-                                   static_cast<unsigned>(b));
-    int lo = 0, hi = cap;            // first index with off > p
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (__ldg(off + mid) <= p) lo = mid + 1; else hi = mid;
-    }
-    const int r = lo - 1;            // last offset <= p, -1 if none
-    T v = T(0), c = T(0);
-    if (r >= 0) {
-      const int within = p - __ldg(off + r);
-      if (within < __ldg(len + r)) {
-        long long src = static_cast<long long>(__ldg(st + r)) + within;
-        src = src < 0 ? 0 : (src >= dcap ? dcap - 1 : src);
-        v = d[src];
-        c = one;
+  T* w = win + row * out_len + static_cast<long long>(blockIdx.x) *
+                                   repro::kTile;
+  T* m = mask == nullptr
+             ? nullptr
+             : mask + row * out_len +
+                   static_cast<long long>(blockIdx.x) * repro::kTile;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int p_first = static_cast<int>(
+      static_cast<unsigned>(static_cast<long long>(blockIdx.x) *
+                            repro::kTile) +
+      static_cast<unsigned>(base[row]));
+
+  if (p_first > INT_MAX - (repro::kTile - 1)) {   // p wraps in this tile
+    for (int i = threadIdx.x; i < repro::kTile; i += kPackThreads) {
+      const int p = static_cast<int>(static_cast<unsigned>(p_first) + i);
+      int lo = 0, hi = cap;   // first index with off > p
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (__ldg(off + mid) <= p) lo = mid + 1; else hi = mid;
       }
+      T v, c;
+      pack_one(off, len, st, d, dcap, p, lo - 1, one, v, c);
+      w[i] = v;
+      if (m != nullptr) m[i] = c;
     }
-    w[pos] = v;
-    if (m != nullptr) m[pos] = c;
+    return;
+  }
+
+  // 1. the carry-in and the end of the tile's run
+  if (warp < 2) {
+    const int q = warp == 0 ? p_first : p_first + (repro::kTile - 1);
+    const int c = count_le(off, cap, q, lane);
+    if (lane == 0) s_cut[warp] = c - 1;
+  }
+  for (int i = threadIdx.x; i < repro::kTile; i += kPackThreads)
+    s_r[tile_slot(i)] = -1;
+  __syncthreads();
+  const int r0 = s_cut[0];
+  const int r_end = s_cut[1];
+
+  // 2. heads: the last request of each offset inside the tile
+  for (int i = r0 + 1 + threadIdx.x; i <= r_end; i += kPackThreads) {
+    const int o = __ldg(off + i);
+    if (i == r_end || __ldg(off + i + 1) != o)
+      s_r[tile_slot(o - p_first)] = i;
+  }
+  __syncthreads();
+
+  // 3. inclusive max-scan seeded with r0
+  int h[kPackItems];
+  int run = r0;
+#pragma unroll
+  for (int k = 0; k < kPackItems; ++k) {
+    const int x = s_r[tile_slot(threadIdx.x * kPackItems + k)];
+    run = x > run ? x : run;
+    h[k] = run;
+  }
+  int x = run;
+#pragma unroll
+  for (int dd = 1; dd < 32; dd <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, dd);
+    if (lane >= dd && y > x) x = y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  int before = __shfl_up_sync(0xffffffffu, x, 1);
+  if (lane == 0) before = r0;
+  __syncthreads();
+  for (int k = 0; k < warp; ++k) before = s_warp[k] > before ? s_warp[k]
+                                                             : before;
+#pragma unroll
+  for (int k = 0; k < kPackItems; ++k)
+    s_r[tile_slot(threadIdx.x * kPackItems + k)] = h[k] > before ? h[k]
+                                                              : before;
+  __syncthreads();
+
+  // 4. the window and the mask, neighbouring threads on neighbouring
+  //    positions
+#pragma unroll   // all 16 gathers in flight at once
+  for (int k = 0; k < kPackItems; ++k) {
+    const int i = k * kPackThreads + threadIdx.x;
+    T v, c;
+    pack_one(off, len, st, d, dcap, p_first + i, s_r[tile_slot(i)], one, v,
+             c);
+    w[i] = v;
+    if (m != nullptr) m[i] = c;
   }
 }
 
@@ -76,7 +211,7 @@ cudaError_t launch_pack(const int* s_off, const int* s_len, const int* s_st,
   memcpy(&one, &one_bits, sizeof(T));   // little-endian low bytes
   const dim3 grid(static_cast<unsigned>(out_len / repro::kTile),
                   static_cast<unsigned>(b));
-  pack_tiles_kernel<T><<<grid, 256, 0, stream>>>(
+  pack_tiles_kernel<T><<<grid, kPackThreads, 0, stream>>>(
       s_off, s_len, s_st, static_cast<const T*>(data), base,
       static_cast<T*>(win), static_cast<T*>(mask), cap, dcap, out_len, one);
   return cudaGetLastError();

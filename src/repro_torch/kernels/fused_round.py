@@ -4,26 +4,32 @@
 
 Each round every aggregator drains one cb window: sort the merged
 request list by offset, then pack the window payload AND its coverage
-mask from ONE binary search per output position. The TPU kernel sorts
-once and keeps the sorted metadata in VMEM scratch across its sequential
-grid; CUDA blocks run concurrently, so the Hopper version
-(``csrc/fused_round.cu``) is several launches behind one call: the sort
-of ``sort.bitonic_sort`` (block sorts and merges, many CTAs a row) into
-scratch, then a tile kernel over ``(out_len / TILE, rows)``. Batched:
-``[B, cap]`` lists give ``[B, out_len]`` windows. On a CPU tensor the
-wrapper runs the plain version,
-:func:`repro_torch.kernels.ref.fused_sort_pack_ref`.
+mask, each position from the last request whose offset is at or before
+it. The TPU kernel sorts once and keeps the sorted metadata in VMEM
+scratch across its sequential grid; CUDA blocks run concurrently, so the
+Hopper version (``csrc/fused_round.cu``) is several launches behind one
+call: the sort of ``sort.bitonic_sort`` (block sorts and merges, many
+CTAs a row) into scratch, then a tile kernel over ``(out_len / TILE,
+rows)`` in which each tile walks the sorted list once (two searches,
+heads in shared memory, a max-scan). Batched: ``[B, cap]`` lists give
+``[B, out_len]`` windows. On a CPU tensor the wrapper runs the plain
+version, :func:`repro_torch.kernels.ref.fused_sort_pack_ref`.
 
 The rle codec's wire form on the slow hop is a zero-skip compaction of
 each payload row. The TPU kernels hold a whole row in VMEM; a row of
-131072 or 262144 4-byte elements does not fit a Hopper block's shared
-memory, so ``csrc/zero_skip.cu`` walks each row in tiles with a carried
-count (encode), and decodes in two launches spread over the whole card
-whatever the number of rows: zero the output, then scatter every tile of
-``(vals, pos)`` entries. Both take 4-byte payloads (int32, float32), the
-types the round engine gives them.
+131072 or 262144 elements does not fit a Hopper block's shared memory,
+so ``csrc/zero_skip.cu`` encodes rows in tiles: one CTA a row where the
+rows give every SM a CTA, else chunks of one tile that CTAs chain by a
+decoupled look-back (:func:`encode_chunks`), each tile writing its share
+of the padding back from the row's end. It decodes in two launches
+spread over the whole card whatever the number of rows: zero the
+output, then scatter every tile of ``(vals, pos)`` entries. Both take
+1-, 2-, 4- and 8-byte payloads (integers, bool, float16, bfloat16,
+float32, float64).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -104,20 +110,46 @@ def fused_sort_pack(offsets: torch.Tensor, lengths: torch.Tensor,
 
 fused_sort_pack.launches = 0
 
-ZERO_SKIP_DTYPES = (torch.int32, torch.float32)
+ENCODE_TILE = 4096          # elements an encode tile (csrc/zero_skip.cu)
 
 
-def _require_zero_skip_dtype(name, dtype):
-    if dtype not in ZERO_SKIP_DTYPES:
-        raise TypeError(f"{name} takes {ZERO_SKIP_DTYPES} on the card, "
-                        f"got {dtype}")
+def zero_skip_kind(name: str, dtype) -> tuple[int, bool]:
+    """``(element width, float zero test)`` the zero-skip kernels take
+    for ``dtype``: integers and bool of 1, 2, 4 or 8 bytes (bits != 0)
+    and float16, bfloat16, float32 and float64 ((bits & ~sign) != 0, so
+    -0.0 is a zero and NaN is not: ``v != 0`` in the payload's type).
+    Raises ``TypeError`` for the rest: complex (a zero test on two
+    parts) and the 1-byte floats (some have no -0.0 and a NaN where it
+    would be)."""
+    width = dtype.itemsize
+    if dtype.is_complex or width not in (1, 2, 4, 8) \
+            or (dtype.is_floating_point and width == 1):
+        raise TypeError(f"{name} takes 1-, 2-, 4- and 8-byte integers and "
+                        f"bool and 2-, 4- and 8-byte floats, got {dtype}")
+    return width, dtype.is_floating_point
+
+
+def encode_chunks(rows: int, n: int, sms: int) -> int:
+    """Chunks a row for ``zero_skip_encode``: one, walked in tiles by one
+    CTA, where the rows give every SM a CTA or a row is one tile; else
+    one tile a chunk, so that rows x chunks CTAs fill several waves of
+    the card. (At 256 rows of 262144 one CTA a row, no look-back, ran
+    faster on the H100 than 64 chunks a row.)"""
+    if n <= ENCODE_TILE or rows >= sms:
+        return 1
+    return n // ENCODE_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def zero_skip_encode(data: torch.Tensor):
     """Zero-skipping compaction of ``[rows, n]`` payload rows, n a power
     of two. Returns ``(vals, pos)``: the nonzero values compacted to the
     front in position order, their positions alongside (int32, -1 in the
-    padding, vals 0 there). CUDA tensors launch the kernel (counted in
+    padding, vals 0 there). CUDA tensors launch the kernels (counted in
     ``zero_skip_encode.launches``); CPU tensors run
     :func:`repro_torch.kernels.ref.zero_skip_encode_ref`."""
     if data.dim() != 2:
@@ -128,14 +160,18 @@ def zero_skip_encode(data: torch.Tensor):
     if data.device.type == "cpu":
         return zero_skip_encode_ref(data)
     build.require_cuda("zero_skip_encode", data)
-    _require_zero_skip_dtype("zero_skip_encode", data.dtype)
+    width, is_float = zero_skip_kind("zero_skip_encode", data.dtype)
+    chunks = encode_chunks(rows, n, _sm_count(data.device.index))
     vals = torch.empty_like(data)
     pos = torch.empty(data.shape, dtype=torch.int32, device=data.device)
+    status = torch.empty(rows * chunks + 1, dtype=torch.int64,
+                         device=data.device)
     lib = build.load_library()
     with torch.cuda.device(data.device):
         rc = lib.repro_zero_skip_encode(
-            data.data_ptr(), vals.data_ptr(), pos.data_ptr(), rows, n,
-            int(data.dtype.is_floating_point), build.stream_of(data))
+            data.data_ptr(), vals.data_ptr(), pos.data_ptr(),
+            status.data_ptr(), rows, n, chunks, width, int(is_float),
+            build.stream_of(data))
     build.check(lib, "zero_skip_encode", rc)
     zero_skip_encode.launches += 1
     return vals, pos
@@ -162,13 +198,13 @@ def zero_skip_decode(vals: torch.Tensor, pos: torch.Tensor):
         return zero_skip_decode_ref(vals, pos)
     build.require_cuda("zero_skip_decode", vals, pos)
     build.require_cuda("zero_skip_decode", pos, dtype=torch.int32)
-    _require_zero_skip_dtype("zero_skip_decode", vals.dtype)
+    width, _ = zero_skip_kind("zero_skip_decode", vals.dtype)
     out = torch.empty_like(vals)
     lib = build.load_library()
     with torch.cuda.device(vals.device):
         rc = lib.repro_zero_skip_decode(
             vals.data_ptr(), pos.data_ptr(), out.data_ptr(), rows, n,
-            build.stream_of(vals))
+            width, build.stream_of(vals))
     build.check(lib, "zero_skip_decode", rc)
     zero_skip_decode.launches += 1
     return out

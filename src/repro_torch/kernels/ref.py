@@ -13,6 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core._tensor import bits_of
 from repro_torch.core.codec import get_codec
 from repro_torch.core.coalesce import pack_data
 from repro_torch.core.exchange import sort_with
@@ -220,6 +221,55 @@ def zero_skip_encode_ref(data: torch.Tensor):
     return vals, pos
 
 
+def zero_skip_nonzero(data: torch.Tensor) -> torch.Tensor:
+    """The zero-skip kernels' zero test on the bits: for a float,
+    ``(bits & ~sign) != 0`` (-0.0 a zero, NaN not), else ``bits != 0``;
+    the same as ``data != 0`` in the payload's type."""
+    bits = bits_of(data)
+    if data.dtype.is_floating_point:
+        bits = bits & torch.iinfo(bits.dtype).max     # the sign cleared
+    return bits != 0
+
+
+def zero_skip_encode_chunked_ref(data: torch.Tensor, chunk: int,
+                                 garbage: int = 0x5A):
+    """The algorithm of ``zero_skip_encode``'s CUDA kernel in plain
+    PyTorch, for the CPU tests: each ``[rows, n]`` row cut into chunks of
+    ``chunk`` elements (the whole row where ``chunk >= n``), each chunk's
+    count of nonzeros (the bit test of :func:`zero_skip_nonzero`), an
+    exclusive scan of the counts over the row's chunks (what the
+    look-back yields), each nonzero at slot ``chunk prefix + its rank in
+    the chunk``, and each zero in the chunk's share of the padding,
+    counted back from the row's end past the zeros of the chunks before
+    it: slot ``n - zeros before - zeros in the chunk + its rank among
+    them``. The outputs start filled with ``garbage`` bytes, so a slot
+    that no chunk writes shows. Equals :func:`zero_skip_encode_ref`."""
+    rows, n = data.shape
+    c = min(chunk, n)
+    if c < 1 or n % c:
+        raise ValueError(f"chunk {chunk} must divide the row length {n}")
+    nz = zero_skip_nonzero(data).reshape(rows, n // c, c).to(torch.int64)
+    counts = nz.sum(dim=-1)                               # [rows, chunks]
+    exclusive = torch.cumsum(counts, dim=-1) - counts
+    zeros = c - counts
+    zeros_before = torch.arange(0, n, c, device=data.device) - exclusive
+    rank = torch.cumsum(nz, dim=-1) - nz                  # in its chunk
+    zero_rank = torch.cumsum(1 - nz, dim=-1) - (1 - nz)
+    slot = torch.where(nz.bool(), exclusive[..., None] + rank,
+                       (n - zeros_before - zeros)[..., None] + zero_rank)
+    slot = slot.reshape(rows, n)
+    vals = torch.empty((rows, n), dtype=data.dtype, device=data.device)
+    bits_of(vals).view(torch.uint8).fill_(garbage)
+    pos = torch.full((rows, n), garbage * 0x01010101, dtype=torch.int32,
+                     device=data.device)
+    nonzero = nz.bool().reshape(rows, n)
+    zero = torch.zeros((), dtype=bits_of(data).dtype, device=data.device)
+    bits_of(vals).scatter_(1, slot, torch.where(nonzero, bits_of(data), zero))
+    pos.scatter_(1, slot, torch.where(
+        nonzero, torch.arange(n, dtype=torch.int32, device=data.device), -1))
+    return vals, pos
+
+
 def zero_skip_decode_ref(vals: torch.Tensor, pos: torch.Tensor):
     """Scatter ``(vals, pos)`` rows back into zeroed ``[rows, n]`` rows
     through a ``[rows, n + 1]`` staging buffer whose last slot takes
@@ -245,6 +295,72 @@ def pack_ref(offsets: torch.Tensor, lengths: torch.Tensor,
     src = (starts[r_c].to(torch.int64) + within).clamp(0, data.shape[0] - 1)
     return torch.where(covered, data[src], torch.zeros((), dtype=data.dtype,
                                                        device=data.device))
+
+
+TILE = 4096   # positions a tile of the pack kernels (csrc/pack_tiles.cuh)
+INT32_MAX = (1 << 31) - 1
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values as int32 arithmetic leaves them (two's complement)."""
+    return ((x + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def pack_tile_walk_ref(s_off: torch.Tensor, s_len: torch.Tensor,
+                       s_st: torch.Tensor, data: torch.Tensor, base,
+                       out_len: int):
+    """The algorithm of the pack tile kernel (``csrc/pack_tiles.cuh``,
+    ``fused_sort_pack``'s second half and ``pack``) in plain PyTorch,
+    for the CPU tests, on offset-SORTED ``[b, cap]`` rows with payload
+    ``[b, dcap]``: per tile of ``TILE`` positions (p = position + base in
+    int32), the carry-in r0 (the last offset <= the tile's first p) and
+    the run's end (the last offset <= its last p) by search; heads: each
+    request of the run marks its offset's place in the tile, the last of
+    equal offsets winning; an inclusive max-scan of the heads seeded
+    with r0 gives every position its request r. A tile whose p wraps past
+    2^31 - 1 searches per position. Then ``within = p - off[r]`` (int32),
+    covered where ``r >= 0`` and ``within < len[r]``, the payload
+    ``data[start[r] + within]`` (clipped into the row) and the mask.
+    ``base``: an int or one per row. Returns ``(window, mask)``."""
+    b, cap = s_off.shape
+    dev = s_off.device
+    if out_len % TILE:
+        raise ValueError(f"out_len must be a multiple of {TILE}")
+    base = torch.as_tensor(base, dtype=torch.int64, device=dev)
+    base = base.reshape(-1).expand(b)[:, None]
+    off = s_off.to(torch.int64).contiguous()
+    idx = torch.arange(cap, device=dev)
+    last_of_equal = torch.cat([off[:, 1:] != off[:, :-1],
+                               torch.ones((b, 1), dtype=torch.bool,
+                                          device=dev)], dim=1)
+    i_tile = torch.arange(TILE, device=dev)
+    rs = []
+    for t in range(out_len // TILE):
+        p_first = _wrap32(t * TILE + base)                    # [b, 1]
+        p = _wrap32(p_first + i_tile)                         # [b, TILE]
+        r0 = torch.searchsorted(off, p_first, right=True) - 1
+        r_end = torch.searchsorted(off, p_first + TILE - 1, right=True) - 1
+        heads = (idx > r0) & (idx <= r_end) & last_of_equal
+        slot = torch.where(heads, off - p_first, TILE)
+        head = torch.full((b, TILE + 1), -1, dtype=torch.int64, device=dev)
+        head.scatter_(1, slot, idx.expand(b, cap))
+        walked = torch.cummax(torch.maximum(head[:, :TILE], r0),
+                              dim=1).values
+        searched = torch.searchsorted(off, p, right=True) - 1
+        wraps = p_first > INT32_MAX - (TILE - 1)
+        rs.append(torch.where(wraps, searched, walked))
+    r = torch.cat(rs, dim=1)                                  # [b, out_len]
+    p = _wrap32(torch.arange(out_len, device=dev) + base)
+    r_c = r.clamp(0, cap - 1)
+    within = _wrap32(p - off.gather(1, r_c))
+    covered = (r >= 0) & (within < s_len.to(torch.int64).gather(1, r_c))
+    src = (s_st.to(torch.int64).gather(1, r_c) + within).clamp(
+        0, data.shape[1] - 1)
+    zero = torch.zeros((), dtype=data.dtype, device=dev)
+    win = torch.where(covered, data.gather(1, src), zero)
+    mask = torch.where(covered, torch.ones((), dtype=data.dtype, device=dev),
+                       zero)
+    return win, mask
 
 
 ATTENTION_CHUNK = 4096   # the reference's default (REPRO_PERF_OPTS on)

@@ -165,3 +165,56 @@ def test_lossy_codec_on_int_payload_raises(method):
     mk = make_twophase_write if method == "twophase" else make_tam_write
     with pytest.raises(TypeError, match="lossy"):
         mk(MESH, LAYOUT, cfg, device="cpu")(O, L, C, D)
+
+
+def _narrow_payloads(D):
+    """bfloat16 and uint8 payloads from an int32 one, zero where it is."""
+    bf = torch.from_numpy(D).to(torch.float32).to(torch.bfloat16)
+    u8 = torch.from_numpy(np.where(D == 0, 0, D % 255 + 1).astype(np.uint8))
+    return bf, u8
+
+
+def _bytes(t):
+    return t.contiguous().view(torch.uint8).numpy().tobytes()
+
+
+@pytest.mark.parametrize("fusion", [None, "fused_round"])
+@pytest.mark.parametrize("method", ["twophase", "tam"])
+def test_rle_narrow_payloads_keep_every_bit(method, fusion):
+    """rle writes and reads of 2- and 1-byte payloads on the CPU: the
+    file equals ``write_reference`` on the payload's bits byte for byte,
+    and reading back a file whose bfloat16 payload holds NaNs with a
+    payload (bits 0x7fc1, which torch's CPU gather and scatter of
+    bfloat16 would turn into 0xffff: the port moves payloads as
+    integers) returns each rank's payload bit for bit. (A write merges
+    windows by a masked max, as the reference's pmax does, so a NaN's
+    bits in a write are the merge's, not the payload's.)"""
+    from repro_torch.core import make_tam_read, make_twophase_read
+    O, L, C, D = btio_write_pattern(16, 64, 4, 8, seed=5)
+    D = D.copy()
+    cells = D.reshape(D.shape[0], -1, 8)
+    cells[np.random.default_rng(5).random(cells.shape[:2]) < 0.5] = 0
+    layout = contiguous_layout(4 * 64 * 64 * 8, 4)
+    mesh = RankMesh(4, 1, 4)
+    write = {"twophase": make_twophase_write, "tam": make_tam_write}[method]
+    read = {"twophase": make_twophase_read, "tam": make_tam_read}[method]
+    for P in _narrow_payloads(D):
+        bits = P.view(torch.int16 if P.element_size() == 2 else torch.uint8)
+        cfg = IOConfig(req_cap=O.shape[1], data_cap=P.shape[1],
+                       coalesce_cap=64, cb_buffer_size=4096,
+                       kernel_fusion=fusion, slow_hop_codec="rle")
+        f, stats = write(mesh, layout, cfg, device="cpu")(O, L, C, P)
+        assert f.dtype == P.dtype
+        assert _bytes(f) == write_reference(layout, O, L, C,
+                                            bits.numpy()).tobytes()
+        assert int(stats["dropped_elems"].sum()) == 0
+        if P.dtype == torch.bfloat16:
+            P = P.clone()
+            P.view(torch.int16)[:, 5::97] = 0x7fc1
+        file = torch.from_numpy(write_reference(
+            layout, O, L, C, P.view(bits.dtype).numpy())).view(P.dtype)
+        got = read(mesh, layout, cfg, device="cpu")(O, L, C,
+                                                    file.reshape(4, -1))
+        for p in range(P.shape[0]):
+            n = int(L[p].sum())
+            assert _bytes(got[p, :n]) == _bytes(P[p, :n])

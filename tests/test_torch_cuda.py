@@ -273,9 +273,57 @@ def test_cuda_zero_skip_decode_cases(cuda, case):
                            v.view(torch.int32).sort(1).values)
 
 
+ZERO_SKIP_DTYPES = [torch.uint8, torch.bool, torch.int8, torch.int16,
+                    torch.float16, torch.bfloat16, torch.int32, torch.float32,
+                    torch.int64, torch.float64]
+
+
+def _rows_of(x, dtype, cuda):
+    """numpy rows as ``dtype`` on the card: bool as x != 0, the rest by
+    value (floats with their -0.0 and NaN)."""
+    t = _t(x).to(cuda)
+    if dtype == torch.bool:
+        return t != 0
+    return t.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ZERO_SKIP_DTYPES, ids=str)
+@pytest.mark.parametrize("rows,n", [(2, 1), (3, 8), (5, 100), (3, 5000),
+                                    (16, 262144), (1100, 8192)])
+def test_cuda_zero_skip_every_width_equals_plain(cuda, dtype, rows, n):
+    """Both kernels at every element width (1, 2, 4, 8 bytes), integer
+    and float zero tests, bit for bit against their plain versions: rows
+    shorter than a tile, rows of many chunks chained by the look-back
+    ([16, 262144]: 64 chunks a row) and rows of one CTA each (1100 rows,
+    more than the card's SMs); -0.0 is a zero and NaN is not."""
+    from repro_torch.kernels import ops as t_ops
+    floats = dtype.is_floating_point
+    x = _zero_skip_rows(np.random.default_rng(n + rows), rows, n,
+                        torch.float32 if floats else torch.int32)
+    if floats:
+        x[1, 1::4] = np.float32(-0.0)
+    x = _rows_of(x, dtype, cuda)
+    vals, pos = t_ops.rle_zero_skip_encode(x)
+    n2 = 1 << max(n - 1, 1).bit_length()
+    padded = torch.nn.functional.pad(x, (0, n2 - n))
+    wv, wp = t_ref.zero_skip_encode_ref(padded)
+    assert vals.dtype == dtype
+    assert torch.equal(vals.view(torch.uint8), wv[:, :n].contiguous()
+                       .view(torch.uint8))
+    assert torch.equal(pos, wp[:, :n])
+    out = t_ops.rle_zero_skip_decode((vals, pos))
+    want = t_ref.zero_skip_decode_ref(wv, wp)[:, :n].contiguous()
+    assert out.dtype == dtype
+    assert torch.equal(out.view(torch.uint8), want.view(torch.uint8))
+
+
 @pytest.mark.cuda
 def test_cuda_zero_skip_rejects_other_dtypes(cuda):
-    for dtype in (torch.int64, torch.float16, torch.uint8):
+    """The kernels take 1-, 2-, 4- and 8-byte integers and bool and 2-,
+    4- and 8-byte floats; complex (no bit test decides its zero) and the
+    1-byte floats raise before any launch, and pos must be int32."""
+    for dtype in (torch.complex64, torch.float8_e4m3fn):
         x = torch.zeros((2, 64), dtype=dtype, device=cuda)
         with pytest.raises(TypeError):
             t_fr.zero_skip_encode(x)
@@ -285,6 +333,65 @@ def test_cuda_zero_skip_rejects_other_dtypes(cuda):
     x = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         t_fr.zero_skip_decode(x, x.to(torch.int64))
+
+
+def _walk_lists(rng, rows, cap, out_len, base, case):
+    """Unsorted request lists (a third PAD_OFFSET) that the pack tile
+    walk must take like the per-position search: ``nested`` (requests
+    inside longer ones, equal offsets, zero lengths), ``wrap`` (offsets
+    near 2^31 - 1 and -2^31 with a base whose tiles wrap), ``zero_len``,
+    ``dense`` (many requests a tile, every offset repeated)."""
+    n = cap - cap // 3
+    offs = np.full((rows, cap), PAD, np.int64)
+    lens = np.zeros((rows, cap), np.int64)
+    for r in range(rows):
+        b = base[r]
+        if case == "nested":
+            o = b + rng.integers(-300, out_len + 300, size=n)
+            o[: n // 4] = o[n // 4: 2 * (n // 4)]
+            ln = rng.integers(0, 3 * out_len // n + 400, size=n)
+        elif case == "wrap":
+            o = np.concatenate([
+                rng.integers(PAD - 6000, PAD - 1, size=n // 2),
+                rng.integers(INT32_MIN, INT32_MIN + 8192, size=n - n // 2)])
+            ln = rng.integers(0, 40, size=n)
+        elif case == "dense":
+            o = b + np.repeat(rng.integers(0, out_len, size=n // 2), 2)
+            o = np.concatenate([o, [b] * (n - o.size)])
+            ln = rng.integers(0, 9, size=n)
+        else:
+            o = b + rng.integers(0, out_len, size=n)
+            ln = np.zeros(n, np.int64)
+        slots = rng.permutation(cap)[:n]
+        offs[r, slots], lens[r, slots] = o, ln
+    starts = rng.integers(0, 1 << 16, size=(rows, cap))
+    return [x.astype(np.int32) for x in (offs, lens, starts)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nested", "wrap", "zero_len", "dense"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint8, torch.int64])
+def test_cuda_fused_sort_pack_walk_cases(cuda, case, dtype):
+    """The tile walk where it is easiest to get wrong: nested requests
+    (only the last offset at or before p decides), equal offsets (the
+    last in the stable order wins), zero lengths, many requests a tile,
+    and bases whose tiles wrap past 2^31 - 1 (a per-position search
+    there): equal to the walk's plain algorithm on the plain sort, whose
+    equality with the per-position search the CPU tests hold."""
+    rng = np.random.default_rng(len(case))
+    rows, cap, out_len = 4, 2048, 16384
+    base = ([(1 << 31) - 9000 + 3 * r for r in range(rows)] if case == "wrap"
+            else [4096 * r - 77 for r in range(rows)])
+    offs, lens, starts = (_t(x).to(cuda) for x in _walk_lists(
+        rng, rows, cap, out_len, base, case))
+    data = _t(rng.integers(1, 120, size=(rows, 1 << 16))).to(cuda).to(dtype)
+    b = torch.tensor(base, dtype=torch.int32, device=cuda)
+    got = t_fr.fused_sort_pack(offs, lens, starts, data, b, out_len)
+    want = t_ref.pack_tile_walk_ref(*t_ref.sort_ref(offs, lens, starts),
+                                    data, b, out_len)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.equal(g, w)
+    assert (int(got[1].sum()) == 0) == (case == "zero_len")
 
 
 @pytest.mark.cuda

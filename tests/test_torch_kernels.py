@@ -28,6 +28,7 @@ from repro_torch.kernels import fused_round as t_fr  # noqa: E402
 from repro_torch.kernels import flash as t_flash  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import pack as t_pack  # noqa: E402
+from repro_torch.kernels import ref as t_ref  # noqa: E402
 from repro_torch.kernels import sort as t_sort  # noqa: E402
 
 PAD = t_rq.PAD_OFFSET
@@ -357,29 +358,49 @@ def test_pack_rejects_bad_shapes(bad):
 
 # ------------------------------------------------- zero_skip_encode/decode
 
+BF16 = np.dtype(jnp.bfloat16)
+
+
 def _zero_skip_rows(rng, rows, n, dtype):
     """Rows with about half zeros, plus an all-zero and a no-zero row;
     float rows also hold -0.0 (a zero) and NaN (a nonzero)."""
     x = rng.integers(-5, 6, size=(rows, n)) * (rng.random((rows, n)) < 0.5)
-    x = x.astype(dtype)
     x[0] = 0
     x[1] = np.where(x[1] == 0, 3, x[1])
-    if np.issubdtype(dtype, np.floating):
-        x = x * np.float32(0.75)
-        x[2, ::3] = np.float32(-0.0)
-        x[2, 1::7] = np.nan
-    return x
+    if np.dtype(dtype).kind != "f" and dtype != BF16:
+        return x.astype(dtype)
+    x = x.astype(np.float32) * np.float32(0.75)
+    x[2, ::3] = np.float32(-0.0)
+    x[2, 1::7] = np.nan
+    return x.astype(dtype)
 
 
-@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def _zs_t(x):
+    """numpy rows to torch; bfloat16 crosses as its bits."""
+    x = np.array(x)
+    if x.dtype == BF16:
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
+def _zs_np(x):
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(BF16)
+    return x.numpy()
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.uint8, np.int16,
+                                   np.float16, BF16],
+                         ids=lambda d: np.dtype(d).name)
 @pytest.mark.parametrize("rows,n", [(4, 8), (5, 64), (3, 1024)])
 def test_zero_skip_encode_decode_match_reference(dtype, rows, n):
-    """Exactly the Pallas kernels (interpret mode) and the reference
-    codec's stable-argsort encode and staged-scatter decode, bit for
-    bit (so -0.0 counts as zero and NaN payloads survive)."""
+    """At every width up to 4 bytes, exactly the Pallas kernels
+    (interpret mode) and the reference codec's stable-argsort encode and
+    staged-scatter decode, bit for bit (so -0.0 counts as zero and NaN
+    payloads survive)."""
     from repro.core.codec import get_codec as j_get_codec
     x = _zero_skip_rows(np.random.default_rng(n + rows), rows, n, dtype)
-    tv, tp = (_np(a) for a in t_fr.zero_skip_encode(_t(x)))
+    tv, tp = (_zs_np(a) for a in t_fr.zero_skip_encode(_zs_t(x)))
     jv, jp = (np.asarray(a) for a in j_fr.zero_skip_encode(
         jnp.asarray(x), interpret=True))
     (cv, cp), _ = j_get_codec("rle").jax_encode(jnp.asarray(x), ())
@@ -387,13 +408,42 @@ def test_zero_skip_encode_decode_match_reference(dtype, rows, n):
         assert tv.dtype == want_v.dtype and tp.dtype == want_p.dtype
         assert tv.tobytes() == want_v.tobytes()
         np.testing.assert_array_equal(tp, want_p)
-    out = _np(t_fr.zero_skip_decode(_t(tv), _t(tp)))
+    out = _zs_np(t_fr.zero_skip_decode(_zs_t(tv), _zs_t(tp)))
     jout = np.asarray(j_fr.zero_skip_decode(jnp.asarray(jv),
                                             jnp.asarray(jp), interpret=True))
     cout = np.asarray(j_get_codec("rle").jax_decode((cv, cp)))
     assert out.tobytes() == jout.tobytes() == cout.tobytes()
     # the round trip restores every nonzero and turns -0.0 into +0.0
-    np.testing.assert_array_equal(out, np.where(x == 0, 0, x).astype(dtype))
+    want = x.copy()
+    want[x == 0] = 0
+    assert out.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.float64],
+                         ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("rows,n", [(4, 8), (3, 8192)])
+def test_zero_skip_encode_decode_64_bit(dtype, rows, n):
+    """8-byte payloads: JAX runs with 64-bit types off (its kernels would
+    see 32-bit values), so these are held against the port's plain
+    version (the wrapper's CPU path), the kernels' chunked algorithm and
+    a numpy stable partition instead, bit for bit."""
+    x = _zero_skip_rows(np.random.default_rng(n), rows, n, dtype)
+    x[1, ::5] = np.iinfo(np.int64).min if dtype == np.int64 else -np.inf
+    tv, tp = t_fr.zero_skip_encode(_zs_t(x))
+    mv, mp = t_ref.zero_skip_encode_chunked_ref(_zs_t(x), t_fr.ENCODE_TILE)
+    assert tv.dtype == mv.dtype and torch.equal(tp, mp)
+    assert tv.numpy().tobytes() == mv.numpy().tobytes()
+    for r in range(rows):
+        keep = np.flatnonzero(x[r] != 0)
+        want_p = np.full(n, -1, np.int32)
+        want_p[:keep.size] = keep
+        want_v = np.zeros(n, dtype)
+        want_v[:keep.size] = x[r, keep]
+        np.testing.assert_array_equal(tp[r].numpy(), want_p)
+        assert tv[r].numpy().tobytes() == want_v.tobytes()
+    want = x.copy()
+    want[x == 0] = 0
+    assert t_fr.zero_skip_decode(tv, tp).numpy().tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("shape", [(37,), (3, 100), (2, 3, 5)])
