@@ -9,7 +9,9 @@ main path gives it (exact equality for the I/O kernels, which move
 words and do no arithmetic on them; for attention every element within
 5e-3 (f32) or 8e-3 (bf16, one bf16 ulp) and a relative L2 distance of at
 most 1e-2, with planted faults shown to fail that limit; the zero-skip
-pair also at 1-, 2- and 8-byte elements), checks small writes and reads
+pair also at 1-, 2- and 8-byte elements; coalesce also on rows whose
+entries are all live and on rows whose int32 ends wrap past 2^31 - 1),
+checks small writes and reads
 with every slow-hop codec on the card against the CPU (rle also on
 bfloat16 and uint8 payloads), then drives the main paths:
 
@@ -256,6 +258,7 @@ def sparse_cells(D, seed):
 
 def phase_kernels(torch, dev, reps):
     """Each kernel against its plain version at the main path's shapes."""
+    from repro_torch.core.requests import PAD_OFFSET
     from repro_torch.kernels import coalesce_kernel, fused_round, ref, sort
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -288,17 +291,39 @@ def phase_kernels(torch, dev, reps):
         emit({"phase": "kernel", "kernel": "bitonic_sort", **rec})
         results.setdefault("bitonic_sort", rec)
 
+    # the rows whose int32 ends wrap, each alone and tiled over 8 tiles
+    P = PAD_OFFSET
+    wrap = torch.tensor([[0, 4, 2147483640, -2147483646, P, P, P, P],
+                         [4, 4, 10, 3, 0, 0, 0, 0],
+                         [0, 4, P, -2147483647, 100, P, P, P],
+                         [4, 4, 2, 3, 4, 0, 0, 0],
+                         [0, 4, P, -2147483647, P, P, P, P],
+                         [4, 4, 2, 3, 0, 0, 0, 0]], dtype=torch.int32,
+                        device=dev)
+    wo, wl = wrap[0::2].contiguous(), wrap[1::2].contiguous()
+    for o, ln in ((wo, wl), (wo.repeat(1, 4096), wl.repeat(1, 4096))):
+        err = max_abs_err(torch, coalesce_kernel.coalesce(o, ln),
+                          ref.coalesce_ref(o, ln))
+        require(err == 0, f"coalesce wrap rows {list(o.shape)} "
+                "!= coalesce_ref")
     rows, n = 16, 32768
-    o, ln = coalesce_inputs(torch, rows, n, 2048, gen, dev)
-    got = coalesce_kernel.coalesce(o, ln)
-    err = max_abs_err(torch, got, ref.coalesce_ref(o, ln))
-    require(err == 0, "coalesce [16, 32768] != coalesce_ref")
-    b, by = bound((4 * rows * n + rows) * 4, rows * n * 4)
-    rec = {"shape": [rows, n], "max_abs_err": err,
-           "runs": int(got[2].sum().item()),
-           "ms": timed(lambda: coalesce_kernel.coalesce(o, ln)),
-           "plain_ms": timed(lambda: ref.coalesce_ref(o, ln)),
-           "library_ms": None, "bound_ms": b, "bound_by": by}
+    shapes = {}
+    gen_live = torch.Generator(device=dev)     # keeps gen's later draws
+    gen_live.manual_seed(1)
+    for name, live, g in (("path", 2048, gen), ("all_live", n, gen_live)):
+        o, ln = coalesce_inputs(torch, rows, n, live, g, dev)
+        got = coalesce_kernel.coalesce(o, ln)
+        err = max_abs_err(torch, got, ref.coalesce_ref(o, ln))
+        require(err == 0, f"coalesce [16, 32768] {name} != coalesce_ref")
+        b, by = bound((4 * rows * n + rows) * 4, rows * n * 4)
+        shapes[name] = {"shape": [rows, n], "live": live,
+                        "max_abs_err": err, "runs": int(got[2].sum().item()),
+                        "ms": timed(lambda: coalesce_kernel.coalesce(o, ln)),
+                        "plain_ms": timed(lambda: ref.coalesce_ref(o, ln)),
+                        "bound_ms": b, "bound_by": by}
+    rec = {**shapes["path"], "all_live": shapes["all_live"],
+           "wrap_rows_equal": True, "library_ms": None,
+           "max_active_clusters": coalesce_kernel.max_active_clusters(n)}
     emit({"phase": "kernel", "kernel": "coalesce", **rec})
     results["coalesce"] = rec
 
@@ -950,7 +975,7 @@ STEPS = {"repro_torch.core.rounds": ("_compact_active", "repack_sorted",
                                      "rle_zero_skip_encode",
                                      "rle_zero_skip_decode")}
 PORT_KERNELS = ("sort_blocks_kernel", "sort_merge_kernel",
-                "coalesce_rows_kernel", "pack_tiles_kernel",
+                "coalesce_cluster_kernel", "pack_tiles_kernel",
                 "zero_skip_encode_rows_kernel",
                 "zero_skip_encode_chunks_kernel", "zero_skip_zero_kernel",
                 "zero_skip_scatter_kernel", "flash_attention_kernel",
@@ -1150,7 +1175,10 @@ def phase_main(torch, dev):
               **rec, "payloads_equal_written": True})
         del got
 
-    for name, (fn, args) in runs.items():   # after the counts are read
+    for name in ("tam", "tam_rle"):          # after the counts are read
+        emit({"phase": "coalesce_rows", "method": name,
+              **coalesce_rows(torch, *runs[name])})
+    for name, (fn, args) in runs.items():
         emit({"phase": "profile", "method": name,
               **profile_write(torch, fn, args)})
     rle = ("zero_skip_encode", "zero_skip_decode")
@@ -1165,6 +1193,31 @@ def phase_main(torch, dev):
             require(launches[method][k] > 0, f"{method}: {k} never launched")
     return {k: sum(c[k] for c in launches.values())
             for k in kernels.launch_counts()}
+
+
+def coalesce_rows(torch, fn, args) -> dict:
+    """One more run of ``fn`` with ``kernels.ops.coalesce`` watched: how
+    many live (non-pad) entries each row it coalesced held, beside the
+    rows' capacity."""
+    import importlib
+    from repro_torch.core.requests import PAD_OFFSET
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    seen, caps, saved = [], set(), ops.coalesce
+
+    def watch(r):
+        seen.append((r.offsets != PAD_OFFSET).sum(-1).reshape(-1))
+        caps.add(r.capacity)
+        return saved(r)
+
+    ops.coalesce = watch
+    try:
+        fn(*args)
+    finally:
+        ops.coalesce = saved
+    live = torch.cat(seen).to(torch.float64)
+    return {"calls": len(seen), "rows": live.numel(),
+            "capacity": sorted(caps), "live_mean": live.mean().item(),
+            "live_min": live.min().item(), "live_max": live.max().item()}
 
 
 def _leaves(tree):

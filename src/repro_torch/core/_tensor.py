@@ -13,6 +13,10 @@ Three jnp behaviours have no one-call torch counterpart:
 * ``jnp.argsort(key, stable=True)`` of a 0/1 key is a stable partition:
   :func:`stable_partition_order` computes it with two cumsums.
 
+The reference adds request ends and file positions in int32, where
+they wrap; the port sums in int64 and takes :func:`wrap_int32` of the
+sum before a compare, a division or an index.
+
 And one torch behaviour the reference does not have: on the CPU,
 ``scatter_`` of bfloat16 turns a NaN's bits into 0xffff. Scatters that
 must move payload bits unchanged scatter :func:`bits_of` the tensors.
@@ -34,6 +38,12 @@ def bits_of(x: torch.Tensor) -> torch.Tensor:
     if x.dtype.is_floating_point:
         return x.view(_INT_OF_WIDTH[x.element_size()])
     return x
+
+
+def wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as int32 arithmetic leaves it: its low 32 bits, two's
+    complement (int32 out)."""
+    return x.to(torch.int32)
 
 
 def exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:

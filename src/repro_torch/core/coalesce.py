@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core._tensor import bits_of, repeat_index, scatter_new
+from repro_torch.core._tensor import (bits_of, repeat_index, scatter_new,
+                                      wrap_int32)
 from repro_torch.core.requests import PAD_OFFSET, RequestList, mask_invalid
 
 _INT32_MAX = 2**31 - 1
@@ -39,13 +40,14 @@ def coalesce_sorted(r: RequestList) -> RequestList:
     ln = r.lengths.to(torch.int64)
     cap = r.capacity
     lead = off.shape[:-1]
-    prev_end = torch.cat([torch.full((*lead, 1), -1, dtype=torch.int64,
+    # ends wrap as the reference's int32 ``off + ln`` does
+    prev_end = torch.cat([torch.full((*lead, 1), -1, dtype=torch.int32,
                                      device=off.device),
-                          (off + ln)[..., :-1]], dim=-1)
+                          wrap_int32(off + ln)[..., :-1]], dim=-1)
     is_pad = off == PAD_OFFSET
     # a new segment starts where the request is not contiguous with the
     # previous one; padding always starts its own (discarded) segment.
-    boundary = (off != prev_end) | is_pad
+    boundary = (r.offsets != prev_end) | is_pad
     seg = torch.cumsum(boundary.to(torch.int64), dim=-1) - 1
     # segment_min over an empty segment is int32 max == PAD_OFFSET
     seg_off = torch.full((*lead, cap), _INT32_MAX, dtype=torch.int64,

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core._tensor import stable_partition_order
+from repro_torch.core._tensor import stable_partition_order, wrap_int32
 
 ELEM_BYTES = 4  # element = one 4-byte word
 PAD_OFFSET = 2**31 - 1
@@ -85,19 +85,20 @@ def split_at_stripes(r: RequestList, stripe_size: int,
     After splitting, each request lies entirely within one stripe, so it
     routes to exactly one global aggregator. Each input request may span
     at most ``max_spans`` stripes; output capacity is cap * max_spans.
-    The span arithmetic runs in int64 and the result is int32.
+    The span arithmetic wraps as the reference's int32 does: sums run
+    in int64 and wrap before each compare.
     """
     cap = r.capacity
     lead = r.offsets.shape[:-1]
     o = r.offsets.to(torch.int64)
-    ln_in = r.lengths.to(torch.int64)
     s0 = o // stripe_size
     j = torch.arange(max_spans, device=o.device, dtype=torch.int64)
     # span j of request i covers [max(o, (s0+j)*S), min(o+l, (s0+j+1)*S))
-    lo = torch.maximum(o.unsqueeze(-1), (s0.unsqueeze(-1) + j) * stripe_size)
-    hi = torch.minimum((o + ln_in).unsqueeze(-1),
-                       (s0.unsqueeze(-1) + j + 1) * stripe_size)
-    ln = (hi - lo).clamp_(min=0)
+    first = (s0.unsqueeze(-1) + j) * stripe_size
+    lo = torch.maximum(r.offsets.unsqueeze(-1), wrap_int32(first))
+    hi = torch.minimum(wrap_int32(o + r.lengths).unsqueeze(-1),
+                       wrap_int32(first + stripe_size))
+    ln = wrap_int32(hi.to(torch.int64) - lo).clamp_(min=0)
     valid = (ln > 0) & r.valid_mask().unsqueeze(-1)
     off_flat = torch.where(valid, lo, PAD_OFFSET).reshape(
         *lead, cap * max_spans).to(torch.int32)

@@ -58,7 +58,8 @@ import torch
 from repro_torch.core import coalesce as co
 from repro_torch.core import codec as codec_mod
 from repro_torch.core import placement as placement_mod
-from repro_torch.core._tensor import repeat_index, stable_partition_order
+from repro_torch.core._tensor import (repeat_index, stable_partition_order,
+                                      wrap_int32)
 from repro_torch.core.exchange import (bucket_by_dest, flatten_buckets,
                                        repack_sorted, sort_with)
 from repro_torch.core.plan import RoundScheduler  # noqa: F401
@@ -467,18 +468,22 @@ def exchange_rounds_read(sched: RoundScheduler, r: RequestList,
     lengths = r.lengths.to(torch.int64)
     eidx = torch.arange(data_cap, device=dev, dtype=torch.int64)
     req_of = repeat_index(lengths, data_cap)
-    fpos = (r.offsets.to(torch.int64).gather(-1, req_of)
-            + (eidx - starts.to(torch.int64).gather(-1, req_of)))
+    # file positions wrap as the reference's int32 sum does
+    fpos = wrap_int32(r.offsets.to(torch.int64).gather(-1, req_of)
+                      + (eidx - starts.to(torch.int64).gather(-1, req_of)))
     del req_of
     live = eidx < lengths.sum(dim=-1, keepdim=True)
     fpos = torch.where(live, fpos, 0)
     dest, wloc = fpos // dl, fpos % dl
     del fpos
-    # out-of-range positions clamp, as the reference's gather does
+    # out-of-range positions clamp, as the reference's gather does (a
+    # negative domain wraps once first, as jnp indexing does)
     slot = (dest if slot_of is None
-            else slot_of[dest.clamp(0, n_dest - 1)])
+            else slot_of[torch.where(dest < 0, dest + n_dest, dest)
+                         .clamp_(0, n_dest - 1)])
     wround = wloc // cb
-    src = slot * cb + (wloc - wround * cb)
+    src = wrap_int32(slot.to(torch.int64) * cb + (wloc - wround * cb)
+                     ).to(torch.int64)
     del dest, wloc, slot
     src.clamp_(0, n_dest * cb - 1)
 

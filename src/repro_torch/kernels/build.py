@@ -38,6 +38,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "repro_bitonic_sort": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "repro_coalesce": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "repro_coalesce_max_active_clusters": (_I, _P),
     "repro_fused_sort_pack": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _LL, _LL, _I, ctypes.c_ulonglong, _P),
     "repro_zero_skip_encode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

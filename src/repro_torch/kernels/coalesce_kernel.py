@@ -2,13 +2,18 @@
 ``repro.kernels.coalesce_kernel.coalesce``.
 
 Merges every run with ``off[i] + len[i] == off[i+1]`` and compacts the
-runs to the front. The Hopper kernel (``csrc/coalesce_kernel.cu``) runs
-one CTA per row: boundary detection, a block-wide scan (warp shuffles
-plus shared memory), and a compacting store of run heads and lengths.
-On a CPU tensor the wrapper runs the plain version,
+runs to the front. The Hopper kernel (``csrc/coalesce_kernel.cu``) gives
+each row a thread-block cluster of ``ceil(n / 4096)`` CTAs, one tile of
+4096 entries each: a block-wide scan of the tile's boundaries, heads and
+lengths, then every CTA reads the totals of its row's tiles through
+distributed shared memory and writes each output word once.
+:func:`repro_torch.kernels.ref.coalesce_tiled_ref` is that algorithm in
+plain PyTorch. On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.coalesce_ref`.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -46,3 +51,14 @@ def coalesce(offsets: torch.Tensor, lengths: torch.Tensor):
 
 
 coalesce.launches = 0
+
+
+def max_active_clusters(n: int = MAX_BLOCK, device=None) -> int:
+    """How many of the kernel's row clusters for rows of ``n`` entries
+    the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    lib = build.load_library()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device if device is not None else 0):
+        rc = lib.repro_coalesce_max_active_clusters(n, ctypes.addressof(out))
+    build.check(lib, "coalesce max_active_clusters", rc)
+    return out.value

@@ -13,7 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core._tensor import bits_of
+from repro_torch.core._tensor import bits_of, wrap_int32
 from repro_torch.core.codec import get_codec
 from repro_torch.core.coalesce import pack_data
 from repro_torch.core.exchange import sort_with
@@ -157,17 +157,18 @@ def coalesce_ref(offsets: torch.Tensor, lengths: torch.Tensor):
     ``coalesce_kernel.coalesce`` in its cumsum/scatter form: run ids
     count every boundary (pads included), run heads scatter their offset
     and exclusive length prefix, run ends their inclusive prefix, and
-    slots past the number of heads are padding. Returns
-    ``(offsets, lengths, counts)``."""
+    slots past the number of heads are padding. Ends and length sums
+    wrap as int32 arithmetic does. Returns ``(offsets, lengths,
+    counts)``."""
     b, n = offsets.shape
     dev = offsets.device
     off = offsets.to(torch.int64)
     ln = lengths.to(torch.int64)
-    ends = off + ln
-    prev_end = torch.cat([torch.full((b, 1), -1, dtype=torch.int64,
+    ends = wrap_int32(off + ln)          # int32 ends, as the TPU's wrap
+    prev_end = torch.cat([torch.full((b, 1), -1, dtype=torch.int32,
                                      device=dev), ends[:, :-1]], dim=1)
     is_pad = off == PAD_OFFSET
-    boundary = (off != prev_end) | is_pad
+    boundary = (offsets != prev_end) | is_pad
     run = torch.cumsum(boundary.to(torch.int64), dim=1) - 1
     ln_live = torch.where(is_pad, 0, ln)
     csum = torch.cumsum(ln_live, dim=1)
@@ -190,6 +191,106 @@ def coalesce_ref(offsets: torch.Tensor, lengths: torch.Tensor):
     return (torch.where(valid, run_off[:, :n], PAD_OFFSET).to(torch.int32),
             torch.where(valid, (run_end - run_start)[:, :n], 0)
             .to(torch.int32),
+            n_runs.to(torch.int32))
+
+
+COALESCE_TILE = 4096   # entries a CTA of the coalesce cluster holds
+
+
+def coalesce_tiled_ref(offsets: torch.Tensor, lengths: torch.Tensor,
+                       tile: int = COALESCE_TILE, garbage: int = -0x5A5A5A5B):
+    """The algorithm of ``coalesce``'s CUDA kernel in plain PyTorch, for
+    the CPU tests: each ``[b, n]`` row cut into tiles of ``tile`` entries
+    (one CTA of the row's cluster each). A tile's totals are its
+    boundaries, heads, non-pad length sum and the exclusive length
+    prefix at its last boundary (0 for a pad); every tile reads the
+    totals of all tiles of its row, which give it its run base, length
+    base, the start of the run open at its first entry (from the nearest
+    earlier tile with a boundary), the row's run count and boundary
+    count. Then each boundary entry writes its run's offset (its own if
+    it is a head and the run id is below the run count, else padding),
+    each run's last entry its length (its inclusive length prefix less
+    the run's start, 0 for a pad or past the run count) through a table
+    of run starts by run id, and each tile its share of the padding
+    slots (as many as its non-boundary entries), counted back from the
+    row's end. Sums wrap as int32. The outputs start as ``garbage``; a
+    slot written never or twice raises. Equals :func:`coalesce_ref`."""
+    b, n = offsets.shape
+    dev = offsets.device
+    off = offsets.to(torch.int64)
+    ln = lengths.to(torch.int64)
+    prev_end = torch.cat([torch.full((b, 1), -1, dtype=torch.int32,
+                                     device=dev),
+                          wrap_int32(off + ln)[:, :-1]], dim=1)
+    is_pad = offsets == PAD_OFFSET
+    bd = (offsets != prev_end) | is_pad
+    live = torch.where(is_pad, 0, ln)
+    last_of_run = torch.cat([bd[:, 1:], torch.ones((b, 1), dtype=torch.bool,
+                                                   device=dev)], dim=1)
+    cuts = [(c, min(n, c + tile)) for c in range(0, n, tile)]
+
+    zero = torch.zeros((b,), dtype=torch.int64, device=dev)
+    totals = []                        # what each tile publishes
+    for lo, hi in cuts:
+        t_bd, t_live = bd[:, lo:hi], live[:, lo:hi]
+        excl = torch.cumsum(t_live, dim=1) - t_live
+        pos = torch.arange(hi - lo, device=dev).expand_as(t_bd)
+        last_bd = torch.where(t_bd, pos, -1).amax(dim=1, keepdim=True)
+        at = last_bd.clamp(min=0)
+        totals.append({"nb": t_bd.sum(dim=1),
+                       "nh": (t_bd & ~is_pad[:, lo:hi]).sum(dim=1),
+                       "ls": t_live.sum(dim=1), "has": last_bd[:, 0] >= 0,
+                       "last_pad": is_pad[:, lo:hi].gather(1, at)[:, 0],
+                       "last_excl": excl.gather(1, at)[:, 0]})
+    n_runs = sum(t["nh"] for t in totals)
+
+    sink = 2 * n                       # oo at [0, n), ol at [n, 2n)
+    out = torch.full((b, sink + 1), garbage, dtype=torch.int64, device=dev)
+    writes = torch.zeros((b, sink + 1), dtype=torch.int64, device=dev)
+
+    def write(ok, slot, val):
+        idx = torch.where(ok, slot, sink)
+        out.scatter_(1, idx, val)
+        writes.scatter_add_(1, idx, torch.ones_like(idx))
+
+    # what a tile reads of the tiles before it in its row
+    run_base, len_base, nonb_before, carry = zero, zero, zero, zero
+    for (lo, hi), tot in zip(cuts, totals):
+        t_bd, t_pad, t_live = bd[:, lo:hi], is_pad[:, lo:hi], live[:, lo:hi]
+        local = torch.cumsum(t_bd.to(torch.int64), dim=1)   # run - base + 1
+        run = run_base[:, None] + local - 1
+        incl = len_base[:, None] + torch.cumsum(t_live, dim=1)
+        excl = incl - t_live
+        # the run-start table by local run id; 0 is the run open at the
+        # tile's first entry, and the last slot takes non-boundaries
+        w = hi - lo
+        starts = torch.zeros((b, w + 2), dtype=torch.int64, device=dev)
+        starts.scatter_(1, torch.where(t_bd, local, w + 1),
+                        torch.where(t_pad, 0, excl))
+        starts[:, 0] = carry
+        start = starts.gather(1, local)
+        past = run >= n_runs[:, None]
+        write(t_bd, run, torch.where(t_pad | past, PAD_OFFSET,
+                                     off[:, lo:hi]))
+        write(last_of_run[:, lo:hi] & (run >= 0), n + run,
+              torch.where(t_pad | past, 0,
+                          wrap_int32(incl - start).to(torch.int64)))
+        nonb = (~t_bd).to(torch.int64)
+        first = n - nonb_before - (w - tot["nb"])
+        slot = first[:, None] + torch.cumsum(nonb, dim=1) - nonb
+        write(nonb.bool(), slot, torch.full_like(slot, PAD_OFFSET))
+        write(nonb.bool(), n + slot, torch.zeros_like(slot))
+        carry = torch.where(tot["has"], torch.where(
+            tot["last_pad"], 0, len_base + tot["last_excl"]), carry)
+        run_base = run_base + tot["nb"]
+        len_base = len_base + tot["ls"]
+        nonb_before = nonb_before + (w - tot["nb"])
+    bad = writes[:, :sink] != 1
+    if bool(bad.any()):
+        r, slot = (int(x) for x in bad.nonzero()[0])
+        raise RuntimeError(f"row {r}: output word {slot} written "
+                           f"{int(writes[r, slot])} times")
+    return (wrap_int32(out[:, :n]), wrap_int32(out[:, n:sink]),
             n_runs.to(torch.int32))
 
 

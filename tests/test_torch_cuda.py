@@ -132,18 +132,87 @@ def test_cuda_fused_sort_pack_at_the_tam_drain_shape(cuda):
     assert int(got[1].sum()) > 0
 
 
+# rows whose ends wrap past 2^31 - 1 (the reference adds off + ln in
+# int32): a run merged through the wrap; a pad's run that takes in a
+# non-pad entry through the wrap and so has no head, then a later head
+# dropped past the run count; the same without the later head
+WRAP_ROWS = [
+    ([0, 4, 2147483640, -2147483646, PAD, PAD, PAD, PAD],
+     [4, 4, 10, 3, 0, 0, 0, 0]),
+    ([0, 4, PAD, -2147483647, 100, PAD, PAD, PAD], [4, 4, 2, 3, 4, 0, 0, 0]),
+    ([0, 4, PAD, -2147483647, PAD, PAD, PAD, PAD], [4, 4, 2, 3, 0, 0, 0, 0]),
+]
+
+
+def _coalesce_case(rng, case, batch, n):
+    """Offset-sorted ``[batch, n]`` rows (the CPU model's cases in
+    ``test_torch_coalesce_tiles.py``): ``tail`` the rows of
+    :func:`_coalesce_rows` with a fifth of padding at the tail and two
+    pads inside the first row; ``long_runs`` runs across
+    tile edges; ``all_pad`` whole tiles of padding and a row of padding
+    only; ``interspersed`` pads inside the live part (later heads fall
+    past the run count); ``neg_start`` off[0] == -1 (run id -1);
+    ``wrap`` the rows whose ends wrap, tiled to n."""
+    if case == "wrap":
+        reps = -(-batch * n // 24)
+        return tuple(np.tile(np.array(x, np.int32).ravel(), reps)
+                     [:batch * n].reshape(batch, n) for x in zip(*WRAP_ROWS))
+    live = {"all_pad": min(n, 300), "long_runs": n - 50}.get(case,
+                                                             n - n // 5)
+    if case == "tail":
+        offs, lens = _coalesce_rows(rng, batch, n)
+        offs[:, live:], lens[:, live:] = PAD, 0
+        if n > 20:
+            offs[0, 10:12], lens[0, 10:12] = PAD, 0
+        return offs, lens
+    p_gap = {"long_runs": 0.0002, "neg_start": 0.01}.get(case, 0.3)
+    lens = rng.integers(1, 7, size=(batch, n)).astype(np.int64)
+    gaps = (rng.random((batch, n)) < p_gap) * rng.integers(1, 9, (batch, n))
+    offs = np.cumsum(lens + gaps, axis=1) - lens + 1000
+    offs[:, live:], lens[:, live:] = PAD, 0
+    if case == "all_pad":
+        offs[-1], lens[-1] = PAD, 0
+    if case == "interspersed":
+        at = rng.random(offs.shape) < 0.05
+        at[:, live:] = False
+        offs[at], lens[at] = PAD, 0
+    if case == "neg_start":
+        offs[:, 0], lens[:, 0] = -1, offs[:, 1] + 1
+    return offs.astype(np.int32), lens.astype(np.int32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,batch", [(8, 1), (100, 3), (4096, 7),
-                                     (32768, 16)])
-def test_cuda_coalesce_equals_plain(cuda, n, batch):
+@pytest.mark.parametrize("n,batch,case", [
+    (8, 1, "tail"), (100, 3, "tail"), (4096, 7, "tail"),
+    (32768, 16, "tail"), (4097, 1, "tail"), (12289, 200, "tail"),
+    (32767, 3, "tail"), (32768, 1, "long_runs"), (32768, 200, "tail"),
+    (32768, 200, "interspersed"), (24576, 16, "all_pad"),
+    (9000, 5, "interspersed"), (4100, 2, "neg_start"),
+    (12288, 3, "long_runs"), (8, 3, "wrap"), (32768, 16, "wrap"),
+    (4101, 2, "wrap")])
+def test_cuda_coalesce_equals_plain(cuda, n, batch, case):
+    """Every case at one to eight tiles a row; 200 rows of 8 tiles are
+    more clusters than the card holds at once."""
     rng = np.random.default_rng(n)
-    offs, lens = _coalesce_rows(rng, batch, n)
-    offs[:, n - n // 5:], lens[:, n - n // 5:] = PAD, 0
-    if n > 20:
-        offs[0, 10:12], lens[0, 10:12] = PAD, 0    # interspersed padding
+    offs, lens = _coalesce_case(rng, case, batch, n)
     o, ln = _t(offs).to(cuda), _t(lens).to(cuda)
     for g, w in zip(t_ck.coalesce(o, ln), t_ref.coalesce_ref(o, ln)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_coalesce_unaligned_rows(cuda):
+    """Rows that do not start on 16 bytes take element loads; the
+    occupancy query answers."""
+    offs, lens = _coalesce_case(np.random.default_rng(9), "tail", 5, 8192)
+    o = torch.empty(offs.size + 1, dtype=torch.int32, device=cuda)
+    ln = torch.empty(offs.size + 1, dtype=torch.int32, device=cuda)
+    o, ln = o[1:].view(5, 8192), ln[1:].view(5, 8192)
+    o.copy_(_t(offs)), ln.copy_(_t(lens))
+    assert o.data_ptr() % 16 and o.is_contiguous()
+    for g, w in zip(t_ck.coalesce(o, ln), t_ref.coalesce_ref(o, ln)):
+        assert torch.equal(g, w)
+    assert t_ck.max_active_clusters(32768) >= 1
 
 
 @pytest.mark.cuda

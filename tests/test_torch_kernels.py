@@ -31,6 +31,8 @@ from repro_torch.kernels import pack as t_pack  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
 from repro_torch.kernels import sort as t_sort  # noqa: E402
 
+from test_torch_cuda import WRAP_ROWS  # noqa: E402
+
 PAD = t_rq.PAD_OFFSET
 
 
@@ -196,6 +198,28 @@ def test_coalesce_kernel_interspersed_padding_matches_reference():
         jnp.asarray(offs), jnp.asarray(lens), interpret=True)]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("row", range(len(WRAP_ROWS)))
+def test_coalesce_kernel_wraps_ends_as_int32(row):
+    offs, lens = (np.array([x], np.int32) for x in WRAP_ROWS[row])
+    got = [_np(x) for x in t_ck.coalesce(_t(offs), _t(lens))]
+    want = [np.asarray(x) for x in j_ck.coalesce(
+        jnp.asarray(offs), jnp.asarray(lens), interpret=True)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_coalesce_sorted_wraps_ends_as_int32():
+    from repro_torch.core import coalesce as t_co
+    offs, lens = (np.array(x, np.int32) for x in WRAP_ROWS[0])
+    got = t_co.coalesce_sorted(t_rq.RequestList(
+        _t(offs), _t(lens), torch.tensor(4, dtype=torch.int32)))
+    want = j_co.coalesce_sorted(JRequestList(
+        jnp.asarray(offs), jnp.asarray(lens), jnp.int32(4)))
+    assert int(want.count) == 2 and int(got.count) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), np.asarray(w))
 
 
 @pytest.mark.parametrize("n", [513])

@@ -36,8 +36,43 @@ READ_CONFIGS = [
     ("tam", "random1", 80, 3, None, None, "identity"),
     ("twophase", "mixed", 32, 2, None, None, "ef-int8"),
     ("tam", "spanning", 80, 1, (1, 0), "fused_round", "ef-int8"),
+    ("twophase", "wrap", 32, 2, (1, 0), None, None),
+    ("tam", "wrap", 160, 1, None, "fused_round", "rle"),
 ]
 EF_BAND = 5e-2
+
+
+def wrap_pattern():
+    """Reads at file positions the reference computes in int32: a
+    request whose end wraps past 2^31 - 1, one past the file's end that
+    does not wrap, one at negative offsets (domain -1, which jnp
+    indexing wraps to the last domain), and ordinary ones."""
+    big = 2**31 - 1
+    O = np.full((8, 8), big, np.int32)
+    L = np.zeros((8, 8), np.int32)
+    C = np.zeros(8, np.int32)
+    rows = {0: [(3, 10), (big - 3, 8)], 1: [(-40, 10), (50, 6)],
+            2: [(big - 100, 6)], 3: [(310, 20)], 4: [(100, 40)],
+            5: [(-2, 5), (big - 2, 5)], 6: [(161, 30)], 7: [(0, 64)]}
+    for p, reqs in rows.items():
+        for i, (o, n) in enumerate(reqs):
+            O[p, i], L[p, i] = o, n
+        C[p] = len(reqs)
+    D = (np.arange(8 * 64, dtype=np.int32).reshape(8, 64) + 1) * 7
+    return O, L, C, D
+
+
+def read_patterns():
+    return {**patterns(), "wrap": wrap_pattern()}
+
+
+def _read_file(pname, pattern):
+    """The file a :data:`READ_CONFIGS` row reads: what its pattern
+    writes, or for ``wrap`` (whose requests leave the file) distinct
+    values everywhere."""
+    if pname == "wrap":
+        return (np.arange(FILE_LEN, dtype=np.int32) * 3 + 1).reshape(2, -1)
+    return _file_of(pattern)
 
 
 def _file_of(pattern):
@@ -59,7 +94,7 @@ def _reference_outputs(out_path: str) -> None:
 
     mesh = jax.make_mesh((2, 2, 2), ("node", "lagg", "lmem"))
     layout = contiguous_layout(FILE_LEN, 2)
-    pats = patterns()
+    pats = read_patterns()
     out = {}
     for i, (method, pname, cb, depth, pl, fusion, codec) in enumerate(
             READ_CONFIGS):
@@ -67,7 +102,7 @@ def _reference_outputs(out_path: str) -> None:
         mk = make_twophase_read if method == "twophase" else make_tam_read
         O, L, C, D = payload_for(codec, pats[pname])
         out[str(i)] = np.asarray(jax.jit(mk(mesh, layout, cfg))(
-            O, L, C, _file_of((O, L, C, D))))
+            O, L, C, _read_file(pname, (O, L, C, D))))
     np.savez(out_path, **out)
 
 
@@ -80,7 +115,7 @@ from repro_torch.core import plan as t_plan  # noqa: E402
 from repro_torch.core import (RankMesh, contiguous_layout,  # noqa: E402
                               make_tam_read, make_twophase_read)
 
-PATTERNS = patterns()
+PATTERNS = read_patterns()
 MESH = RankMesh(2, 2, 2)
 LAYOUT = contiguous_layout(FILE_LEN, 2)
 READERS = {"twophase": make_twophase_read, "tam": make_tam_read}
@@ -169,7 +204,7 @@ def test_read_matches_reference_executor(jax_outputs, i):
     cfg = _config(t_plan, cb, depth, pl, fusion, 32, codec)
     O, L, C, D = payload_for(codec, PATTERNS[pname])
     got = READERS[method](MESH, LAYOUT, cfg, device="cpu")(
-        O, L, C, _file_of((O, L, C, D))).numpy()
+        O, L, C, _read_file(pname, (O, L, C, D))).numpy()
     want = jax_outputs[str(i)]
     assert got.shape == want.shape and got.dtype == want.dtype
     assert got.tobytes() == want.tobytes()

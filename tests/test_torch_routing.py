@@ -113,6 +113,30 @@ def test_split_at_stripes_and_request_starts(name, stripe):
         _per_rank(j_co.request_starts)(j_split))
 
 
+@pytest.mark.parametrize("stripe", [32, 80, 4096])
+def test_split_at_stripes_wraps_as_int32(stripe):
+    """Requests whose ends pass 2^31 - 1, ones in the last stripes below
+    it (where the stripe's end passes it) and ones at negative offsets
+    split as the reference's int32 arithmetic splits them."""
+    big = 2**31 - 1
+    rows = [[(big - 40, 30), (big - 5, 10)], [(big - 200, 150)],
+            [(-50, 80), (100, 7)], [(big - 2, 2**31 - 1)],
+            [(-2**31, 40), (2**31 - 4097, 4097)]]
+    O = np.full((len(rows), 4), big, np.int32)
+    L = np.zeros_like(O)
+    C = np.array([len(r) for r in rows], np.int32)
+    for p, reqs in enumerate(rows):
+        for i, (o, n) in enumerate(reqs):
+            O[p, i], L[p, i] = o, n
+    spans = 4
+    t_split = t_rq.split_at_stripes(_t_req(O, L, C), stripe, spans)
+    j_split = _per_rank(_j_split_fn, stripe, spans)(
+        jnp.asarray(O), jnp.asarray(L), jnp.asarray(C))
+    _eq(t_split.offsets, j_split.offsets)
+    _eq(t_split.lengths, j_split.lengths)
+    _eq(t_split.count, j_split.count)
+
+
 def _j_bucket_fn(o, ln, c, d, n_dest, req_cap, data_cap):
     r = j_rq.RequestList(o, ln, c)
     return j_ex.bucket_by_dest(r, j_co.request_starts(r), d,
