@@ -24,6 +24,18 @@ bfloat16 and uint8 payloads), then drives the main paths:
   the zero-skip kernels encode and decode; the two-phase and the TAM
   collective read with ``"rle"`` (``make_twophase_read``,
   ``make_tam_read``), reading that file back;
+* on the same mesh, the paper's other patterns: E3SM-G (1024 interleaved
+  requests of 512 B a rank, 128 int32 elements each) through both
+  writes, and sparse checkpoint pages (256 pages of 2048 B a rank, 75%
+  all zero, uint8 elements) through the TAM write with ``"rle"`` and its
+  TAM read, each file equal to ``write_reference`` with zero drops;
+* the host layer: ``checkpoint.HostCollectiveIO`` on the card at 1024
+  ranks (E3SM-G, a 64 MiB file) writing with both methods single shot
+  and in 1 MiB windows at depth 2 (each aggregator's image built by the
+  ``pack`` kernel), with TAM once more with ``"rle"`` on the slow hop
+  (encoded on the host), its read, and the multi-process transport at 16
+  ranks (workers forked after CUDA is in use) against the in-process
+  executor's segments;
 * greedy serving of gemma2-9b at full width and depth (42 layers, bf16
   weights from a seeded generator) through ``launch.serve.generate``
   and the model's prefill and decode: batch 4 x 32 prompt tokens x 16
@@ -38,7 +50,8 @@ bfloat16 and uint8 payloads), then drives the main paths:
 Every phase prints one JSON line; any failed check raises, and the run
 exits non-zero. The line before the last lists every kernel with its
 launches on the main paths, its time, its bound and the plain and library
-times (for attention with the softcap, the library is
+times (``pack`` at its shape on the host path; for attention with the
+softcap, the library is
 ``flex_attention``, compiled by ``torch.compile`` with its caches under
 ``build/``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
@@ -1133,19 +1146,10 @@ def phase_main(torch, dev):
     launches, files, runs = {}, {}, {}
 
     def measured(name, fn, args):
-        fn(*args)                        # warm-up
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats(dev)
-        t = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches[name] = kernels.launch_counts()
+        out, rec = run_measured(torch, dev, fn, args)
+        launches[name] = rec["launches"]
         runs[name] = (fn, args)
-        return out, {"wall_s": wall,
-                     "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-                     "launches": launches[name]}
+        return out, rec
 
     for name, (w, args, payload) in writes.items():
         (f, stats), rec = measured(name, w, args)
@@ -1527,6 +1531,327 @@ def phase_serve(torch, dev):
             {r: routes_a[r] + routes_b[r] for r in routes_a})
 
 
+def run_measured(torch, dev, fn, args):
+    """One warm-up run of ``fn(*args)``, then a timed run with every
+    launch count set to 0 just before it and read just after. Returns
+    ``(output, record)`` (wall, peak device memory, launches)."""
+    from repro_torch import kernels
+    fn(*args)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return out, {"wall_s": wall,
+                 "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                 "launches": kernels.launch_counts()}
+
+
+def phase_patterns(torch, dev, nodes=16, per_node=64, e3sm_reqs=1024,
+                   pages=256, rounds=32):
+    """The paper's communication-bound pattern and the sparse-checkpoint
+    pattern on the BTIO cells' mesh (16 nodes x 64 ranks, one global
+    aggregator a node, 32 rounds): E3SM-G (``e3sm_g_pattern``: 1024
+    interleaved requests of 512 B a rank, rank r's k-th at slot k*P + r,
+    seed 0; 128 int32 elements a request, a 512 MiB file) through the
+    two-phase and the TAM write; ``sparse_checkpoint_pattern`` (256 pages
+    of 2048 B a rank, 75% all-zero pages, seed 7; uint8 elements, a
+    512 MiB file) through the TAM write with ``slow_hop_codec="rle"``,
+    and its TAM rle read. Every file equals ``write_reference`` byte for
+    byte with zero drops, the two E3SM files are equal, and the read
+    returns every rank's payload. Returns the launches of the runs. The
+    keyword sizes are the deployment's; a CPU rehearsal shrinks them."""
+    import numpy as np
+
+    from repro_torch.core import (IOConfig, RankMesh, contiguous_layout,
+                                  make_tam_read, make_tam_write,
+                                  make_twophase_write, requests_from_numpy,
+                                  write_reference)
+    from repro_torch.io_patterns.generators import (
+        e3sm_g_pattern, rank_requests_to_elements, sparse_checkpoint_pattern)
+    n_nodes, n_ranks = nodes, nodes * per_node
+    mesh = RankMesh(n_nodes, 1, per_node)
+    t0 = time.perf_counter()
+    O, L, C, D = rank_requests_to_elements(
+        e3sm_g_pattern(n_ranks, reqs_per_rank=e3sm_reqs, req_bytes=512,
+                       seed=0), np.int32)
+    layout = contiguous_layout(n_ranks * e3sm_reqs * 128, n_nodes)
+    ref = write_reference(layout, O, L, C, D)
+    # the BTIO cells' config (262144-element windows: 32 rounds) at 1024
+    # requests a rank
+    cfg = IOConfig(req_cap=e3sm_reqs, data_cap=D.shape[1], coalesce_cap=512,
+                   cb_buffer_size=layout.file_len // n_nodes // rounds,
+                   kernel_fusion="fused_round")
+    SO, SL, SC, SD = rank_requests_to_elements(
+        sparse_checkpoint_pattern(n_ranks, pages_per_rank=pages,
+                                  page_bytes=2048, zero_page_fraction=0.75,
+                                  seed=7), np.uint8)
+    s_layout = contiguous_layout(n_ranks * pages * 2048, n_nodes)
+    s_ref = write_reference(s_layout, SO, SL, SC, SD)
+    # uint8 elements: 1 MiB windows (the BTIO cells' 262144 int32) keep
+    # the 32 rounds
+    s_cfg = IOConfig(req_cap=pages, data_cap=SD.shape[1], coalesce_cap=512,
+                     cb_buffer_size=s_layout.file_len // n_nodes // rounds,
+                     kernel_fusion="fused_round", slow_hop_codec="rle")
+    inputs = requests_from_numpy(O, L, C, D, device=dev)
+    s_inputs = requests_from_numpy(SO, SL, SC, SD, device=dev)
+    writes = {
+        "e3sm_g_twophase": (make_twophase_write(mesh, layout, cfg,
+                                                device=dev), inputs, ref),
+        "e3sm_g_tam": (make_tam_write(mesh, layout, cfg, use_kernels=True,
+                                      device=dev), inputs, ref),
+        "sparse_ckpt_tam_rle": (make_tam_write(mesh, s_layout, s_cfg,
+                                               use_kernels=True, device=dev),
+                                s_inputs, s_ref),
+    }
+    emit({"phase": "patterns_deployment", "ranks": n_ranks,
+          "nodes": n_nodes, "ranks_per_node": per_node,
+          "e3sm_g": {"requests_per_rank": e3sm_reqs, "request_bytes": 512,
+                     "file_bytes": ref.nbytes, "elem": "int32"},
+          "sparse_ckpt": {"pages_per_rank": pages, "page_bytes": 2048,
+                          "zero_page_fraction": 0.75,
+                          "zero_bytes": float((s_ref == 0).mean()),
+                          "file_bytes": s_ref.nbytes, "elem": "uint8"},
+          "rounds": {k: w[0].plan.n_rounds for k, w in writes.items()},
+          "cb": {k: w[0].plan.cb for k, w in writes.items()},
+          "setup_s": time.perf_counter() - t0})
+    launches, files, runs = {}, {}, {}
+    for name, (w, args, want) in writes.items():
+        (f, stats), rec = run_measured(torch, dev, w, args)
+        launches[name] = rec["launches"]
+        runs[name] = (w, args)
+        stats = {k: v.cpu().tolist() for k, v in stats.items()}
+        files[name] = f.cpu().numpy().reshape(-1)
+        require(files[name].tobytes() == want.tobytes(),
+                f"{name}: file != write_reference")
+        total = {k: sum(v) if isinstance(v, list) else v
+                 for k, v in stats.items()}
+        drops = {k: v for k, v in total.items() if k.startswith("dropped")}
+        require(all(v == 0 for v in drops.values()), f"{name}: drops {drops}")
+        extra = {k: total[k] for k in ("requests_before_coalesce",
+                                       "requests_after_coalesce")
+                 if k in total}
+        emit({"phase": "main_path", "method": name, "direction": "write",
+              **rec, "file_equals_reference": True, "drops": drops,
+              **extra, "requests_at_ga": stats["requests_at_ga"]})
+        if name == "sparse_ckpt_tam_rle":
+            s_file = f
+        del f
+    require(files["e3sm_g_twophase"].tobytes()
+            == files["e3sm_g_tam"].tobytes(),
+            "e3sm_g_twophase file != e3sm_g_tam file")
+    read = make_tam_read(mesh, s_layout, s_cfg, device=dev)
+    live = (torch.arange(SD.shape[1], device=dev)
+            < s_inputs[1].to(torch.int64).sum(dim=1, keepdim=True))
+    want = torch.where(live, s_inputs[3], 0)
+    got, rec = run_measured(torch, dev, read, (*s_inputs[:3], s_file))
+    launches["sparse_ckpt_tam_rle_read"] = rec["launches"]
+    runs["sparse_ckpt_tam_rle_read"] = (read, (*s_inputs[:3], s_file))
+    require(got.shape == want.shape and torch.equal(got, want),
+            "sparse_ckpt_tam_rle_read: payloads != what each rank wrote")
+    emit({"phase": "main_path", "method": "sparse_ckpt_tam_rle_read",
+          "direction": "read", **rec, "payloads_equal_written": True})
+    del got, s_file
+    emit({"phase": "coalesce_rows", "method": "e3sm_g_tam",
+          **coalesce_rows(torch, *runs["e3sm_g_tam"])})
+    for name, (fn, args) in runs.items():
+        emit({"phase": "profile", "method": name,
+              **profile_write(torch, fn, args)})
+    rle = ("zero_skip_encode", "zero_skip_decode")
+    needed = {"e3sm_g_twophase": ("fused_sort_pack",),
+              "e3sm_g_tam": ("fused_sort_pack", "bitonic_sort", "coalesce"),
+              "sparse_ckpt_tam_rle": ("fused_sort_pack", "bitonic_sort",
+                                      "coalesce") + rle,
+              "sparse_ckpt_tam_rle_read": rle}
+    for method, names in needed.items():
+        for k in names:
+            require(launches[method][k] > 0, f"{method}: {k} never launched")
+    return {k: sum(c[k] for c in launches.values())
+            for k in next(iter(launches.values()))}
+
+
+@contextlib.contextmanager
+def watching_pack(calls):
+    """Hand every ``kernels.ops.pack`` call's arguments to ``calls`` (a
+    list) while passing it on unchanged."""
+    import importlib
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    saved = ops.pack
+
+    def watch(r, starts, data, base, out_len):
+        calls.append((r, starts, data, base, out_len))
+        return saved(r, starts, data, base, out_len)
+
+    ops.pack = watch
+    try:
+        yield
+    finally:
+        ops.pack = saved
+
+
+def timings_dict(t) -> dict:
+    """Every ``IOTimings`` field and property."""
+    d = dict(vars(t))
+    for prop in ("total", "comm", "coalesce_ratio", "cache_hit_ratio",
+                 "slow_hop_compression_ratio", "hidden_fraction"):
+        d[prop] = getattr(t, prop)
+    return d
+
+
+def phase_host(torch, dev, reps):
+    """The host executor on the card (``checkpoint.HostCollectiveIO``):
+    1024 ranks on 16 nodes, 16 global aggregators over 1 MiB stripes,
+    E3SM-G at 128 requests of 512 B a rank (a 64 MiB file, seed 0).
+    ``tam`` and ``twophase`` single shot, then with ``cb_bytes`` = 1 MiB
+    at ``pipeline_depth=2``, ``tam`` single shot with ``rle`` on the slow
+    hop (encoded and decoded on the host, one message at a time), then a
+    read of what was written. Checks:
+    ``read_file`` equals a numpy image built from the rank requests, the
+    methods give equal files, the read returns every rank's payload, and
+    ``pack`` (each domain image, window by window) launched. Returns the
+    launches of the runs and ``pack``'s measurement at the phase's
+    shape."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import HostCollectiveIO
+    from repro_torch.core.plan import IOConfig
+    from repro_torch.io_patterns.generators import e3sm_g_pattern
+    from repro_torch.kernels import ref
+    reqs = e3sm_g_pattern(1024, reqs_per_rank=128, req_bytes=512, seed=0)
+    file_len = 1024 * 128 * 512
+    image = np.zeros(file_len, np.uint8)
+    for offs, lens, data in reqs:
+        idx = (offs[:, None] + np.arange(512)).reshape(-1)
+        image[idx] = data
+    io = HostCollectiveIO(n_ranks=1024, n_nodes=16, stripe_size=1 << 20,
+                          stripe_count=16, device=dev)
+    configs = {
+        "single": IOConfig(req_cap=0, data_cap=0),
+        "cb_1MiB_d2": IOConfig(req_cap=0, data_cap=0,
+                               cb_buffer_size=1 << 20, pipeline=True,
+                               pipeline_depth=2)}
+    runs = [(f"host_{method}_{cname}", method, cfg)
+            for cname, cfg in configs.items()
+            for method in ("tam", "twophase")]
+    # the slow hop's codec runs on the host, one message at a time
+    runs.append(("host_tam_single_rle", "tam",
+                 IOConfig(req_cap=0, data_cap=0, slow_hop_codec="rle")))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_host_")
+    launches, files, calls = {}, {}, []
+    try:
+        for name, method, cfg in runs:
+            path = os.path.join(tmp, name)
+            calls.clear()
+            with watching_pack(calls):
+                t, rec = run_measured(
+                    torch, dev, lambda: io.write(
+                        reqs, path, method=method, config=cfg), ())
+            launches[name] = rec["launches"]
+            got = io.read_file(path, file_len).cpu().numpy()
+            require(got.tobytes() == image.tobytes(),
+                    f"{name}: read_file != the numpy image")
+            files[name] = got.tobytes()
+            require(launches[name]["pack"] > 0,
+                    f"{name}: pack never launched")
+            require(cfg.slow_hop_codec is None or (
+                t.slow_hop_codec == "rle" and t.slow_hop_raw_bytes > 0),
+                f"{name}: the slow hop was not encoded")
+            shapes = sorted({(c[0].capacity, c[4]) for c in calls})
+            emit({"phase": "host", "method": name, **rec,
+                  "pack_calls_per_write": len(calls) // 2,
+                  "pack_shapes": shapes,
+                  "file_equals_image": True,
+                  "timings": timings_dict(t)})
+            if name == "host_twophase_cb_1MiB_d2":
+                pack_args = calls[-1]
+        require(len(set(files.values())) == 1, "host files differ")
+        rd = [(o, ln) for o, ln, _ in reqs]
+        path = os.path.join(tmp, "host_tam_cb_1MiB_d2")
+        (outs, t), rec = run_measured(
+            torch, dev, lambda: io.read(rd, path, config=configs[
+                "cb_1MiB_d2"]), ())
+        launches["host_read"] = rec["launches"]
+        require(len(outs) == 1024 and all(
+            o.device.type == "cuda" and np.array_equal(o.cpu().numpy(), d)
+            for o, (_, _, d) in zip(outs, reqs)),
+            "host read: payloads != what each rank wrote")
+        emit({"phase": "host", "method": "host_read", **rec,
+              "payloads_equal_written": True, "timings": timings_dict(t)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # pack at this phase's shape: one window of one domain image
+    from repro_torch.kernels import ops
+    r, st, data, base, out_len = pack_args
+    flush = torch.empty(1 << 25, dtype=torch.int32, device=dev)
+    want = ref.pack_ref(r.offsets, r.lengths, st, data, base, out_len)
+    got = ops.pack(r, st, data, base, out_len)
+    err = max_abs_err(torch, (got,), (want,))
+    require(err == 0, "pack at the host shape != pack_ref")
+    cap = max(r.capacity, 2)
+    covered = int(r.lengths.to(torch.int64).sum().item())
+    b, by = bound(3 * cap * 4 + covered + out_len, out_len * math.log2(cap))
+    rec = {"shape": [r.capacity], "out_len": out_len, "covered": covered,
+           "dtype": "uint8", "max_abs_err": err,
+           "ms": time_ms(torch, lambda: ops.pack(r, st, data, base, out_len),
+                         reps, flush),
+           "plain_ms": time_ms(torch, lambda: ref.pack_ref(
+               r.offsets, r.lengths, st, data, base, out_len), reps, flush),
+           "library_ms": None, "bound_ms": b, "bound_by": by}
+    emit({"phase": "kernel", "kernel": "pack", "path": "host", **rec})
+    del flush
+    return ({k: sum(c[k] for c in launches.values())
+             for k in next(iter(launches.values()))}, rec)
+
+
+def phase_mp(torch, dev):
+    """The multi-process transport on the card's machine
+    (``transport="mp"``): 16 ranks over 4 nodes (the reference's
+    transport tests' size), E3SM-G at 8 requests of 96 B a rank, cb
+    256 B at depth 2 with ``rle`` on the wire. The workers are forked
+    after CUDA is in use and touch host copies only; ``tam`` and
+    ``twophase`` segments equal the in-process host executor's on the
+    same requests."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import HostCollectiveIO
+    from repro_torch.core.plan import IOConfig
+    from repro_torch.io_patterns.generators import e3sm_g_pattern
+    reqs = e3sm_g_pattern(16, reqs_per_rank=8, req_bytes=96, seed=4)
+    io = HostCollectiveIO(n_ranks=16, n_nodes=4, stripe_size=1024,
+                          stripe_count=2, device=dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        for method in ("tam", "twophase"):
+            segs = {}
+            for transport in (None, "mp"):
+                cfg = IOConfig(req_cap=0, data_cap=0, cb_buffer_size=256,
+                               pipeline=True, pipeline_depth=2,
+                               slow_hop_codec="rle", transport=transport)
+                path = os.path.join(tmp, f"{method}_{transport}")
+                t0 = time.perf_counter()
+                t = io.write(reqs, path, method=method, config=cfg)
+                wall = time.perf_counter() - t0
+                segs[transport] = [open(f"{path}.seg{g}", "rb").read()
+                                   for g in range(2)]
+            require(segs[None] == segs["mp"],
+                    f"mp {method}: segments != the host executor's")
+            emit({"phase": "mp", "method": method, "wall_s": wall,
+                  "segments_equal_host": True,
+                  "slow_hop_slow_bytes": t.slow_hop_slow_bytes,
+                  "slow_hop_fast_bytes": t.slow_hop_fast_bytes,
+                  "messages_at_ga": t.messages_at_ga,
+                  "rounds": t.rounds_executed,
+                  "comm_wall_s": t.inter_comm, "io_wall_s": t.io})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # torch.compile (flex_attention's library time) keeps its caches in
@@ -1571,15 +1896,28 @@ def main() -> int:
     phase_small(torch, dev)
     phase_small_codecs(torch, dev)
     launches = phase_main(torch, dev)
+    patterns = phase_patterns(torch, dev)
+    hosted, pack_rec = phase_host(torch, dev, REPS)
+    phase_mp(torch, dev)
     served, served_routes = phase_serve(torch, dev)
-    launches = {k: launches[k] + served[k] for k in launches}
+    launches = {k: launches[k] + patterns[k] + hosted[k] + served[k]
+                for k in launches}
+    # pack's line: its shape on the host path, where it launches; the
+    # drain-window case of phase_pack beside it
+    window_case = measured["pack"]
+    measured["pack"] = pack_rec
+    require(hosted["pack"] > 0, "host: pack never launched")
     flash_rec = measured["flash_attention_fused"]
     extra = {"flash_attention_fused": {   # beyond the contract's keys
         "sources": FLASH_SOURCES, "case": flash_rec["case"],
         "kernel_route": flash_rec["route"],
         "library": flash_rec["library"],
         "nocap_case": flash_rec["nocap_case"],
-        "launches_by_route": served_routes}}
+        "launches_by_route": served_routes},
+        "pack": {"path": "host executor domain images (phase_host)",
+                 "shape": pack_rec["shape"], "out_len": pack_rec["out_len"],
+                 "window_case": {k: window_case[k] for k in (
+                     "shape", "out_len", "ms", "plain_ms", "bound_ms")}}}
     require(served["flash_attention_fused"] > 0,
             "serve: flash_attention_fused never launched")
 

@@ -6,7 +6,8 @@ from repro_torch.core.requests import (  # noqa: F401
 )
 from repro_torch.core.domains import FileLayout, contiguous_layout  # noqa: F401
 from repro_torch.core.coalesce import (  # noqa: F401
-    coalesce_sorted, pack_data, request_starts, sort_requests, unpack_data,
+    aggregate, coalesce_ratio, coalesce_sorted, merge_sorted, pack_data,
+    request_starts, sort_requests, unpack_data,
 )
 from repro_torch.core.plan import (  # noqa: F401
     IOConfig, IOPlan, RoundScheduler, compile_plan, plan_diff,

@@ -25,6 +25,7 @@ Every helper works on the LAST axis and treats leading axes as a batch.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -103,3 +104,23 @@ def stable_partition_order(keep: torch.Tensor) -> torch.Tensor:
     src = torch.arange(n, device=keep.device,
                        dtype=torch.int64).expand_as(pos)
     return torch.empty_like(pos).scatter_(-1, pos, src)
+
+
+def to_host(x, dtype) -> np.ndarray:
+    """A numpy array of ``x`` in ``dtype``: a tensor is copied off its
+    device, an array converted as ``np.asarray`` does."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy().astype(dtype, copy=False)
+    return np.asarray(x, dtype)
+
+
+def byte_index(starts: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Positions ``s .. s + n - 1`` of every ``(s, n)`` (int64), in
+    order, concatenated."""
+    total = int(lengths.sum().item()) if lengths.numel() else 0
+    if total == 0:
+        return torch.zeros(0, dtype=torch.int64, device=starts.device)
+    req_of = repeat_index(lengths, total)
+    return (starts.gather(0, req_of)
+            + torch.arange(total, device=starts.device)
+            - exclusive_cumsum(lengths).gather(0, req_of))

@@ -29,6 +29,20 @@ def sort_requests(r: RequestList) -> RequestList:
                        r.lengths.gather(-1, order), r.count)
 
 
+def merge_sorted(lists: RequestList) -> RequestList:
+    """Merge a batch of per-sender sorted lists into one sorted list.
+
+    ``lists`` has a sender axis before the capacity, ``[..., S, cap]``;
+    the result is one offset-sorted list of capacity ``S * cap`` per
+    leading index. This is the aggregator-side merge in both
+    aggregation layers.
+    """
+    lead = lists.offsets.shape[:-2]
+    return sort_requests(RequestList(
+        lists.offsets.reshape(*lead, -1), lists.lengths.reshape(*lead, -1),
+        lists.count.sum(dim=-1, dtype=torch.int32)))
+
+
 def coalesce_sorted(r: RequestList) -> RequestList:
     """Coalesce adjacent contiguous requests of an offset-sorted list.
 
@@ -67,6 +81,18 @@ def coalesce_sorted(r: RequestList) -> RequestList:
         n_seg.to(torch.int32))
 
 
+def aggregate(lists: RequestList) -> RequestList:
+    """Full aggregator step: merge-sort per-sender lists, then coalesce."""
+    return coalesce_sorted(merge_sorted(lists))
+
+
+def coalesce_ratio(before: RequestList, after: RequestList) -> torch.Tensor:
+    """Fraction of requests remaining after coalescing (lower = better),
+    float32."""
+    return after.count.to(torch.float32) / torch.clamp(
+        before.count.to(torch.float32), min=1.0)
+
+
 def _base_col(base, ref: torch.Tensor):
     """A scalar base, or a per-row base broadcast against ``[..., n]``."""
     if isinstance(base, torch.Tensor):
@@ -83,7 +109,8 @@ def pack_data(r: RequestList, starts: torch.Tensor, data: torch.Tensor,
     aggregator-side placement into its file domain. ``base`` (an int or
     one value per row) is subtracted from the offsets; elements mapping
     outside ``[0, out_len)`` are dropped (negative positions wrap once,
-    as the reference's scatter does).
+    as the reference's scatter does). Positions are int32 sums, wrapped
+    as the reference's are.
     """
     lengths = r.lengths.to(torch.int64)
     dcap = data.shape[-1]
@@ -92,8 +119,9 @@ def pack_data(r: RequestList, starts: torch.Tensor, data: torch.Tensor,
     packed_starts = torch.cumsum(lengths, dim=-1) - lengths
     within = eidx - packed_starts.gather(-1, req_of)
     src = starts.to(torch.int64).gather(-1, req_of) + within
-    dst = (r.offsets.to(torch.int64).gather(-1, req_of) + within
-           - _base_col(base, data))
+    # the position wraps as the reference's int32 ``off + within - base``
+    dst = wrap_int32(r.offsets.to(torch.int64).gather(-1, req_of) + within
+                     - _base_col(base, data)).to(torch.int64)
     del req_of, within
     live = eidx < lengths.sum(dim=-1, keepdim=True)
     vals = bits_of(data).gather(-1, src.clamp_(0, dcap - 1))
@@ -109,8 +137,8 @@ def unpack_data(r: RequestList, starts: torch.Tensor, buf: torch.Tensor,
     req_of = repeat_index(lengths, out_len)
     eidx = torch.arange(out_len, device=buf.device)
     within = eidx - starts.to(torch.int64).gather(-1, req_of)
-    pos = (r.offsets.to(torch.int64).gather(-1, req_of) + within
-           - _base_col(base, buf))
+    pos = wrap_int32(r.offsets.to(torch.int64).gather(-1, req_of) + within
+                     - _base_col(base, buf)).to(torch.int64)
     live = eidx < lengths.sum(dim=-1, keepdim=True)
     pos = torch.where(live, pos, 0).clamp_(0, buf.shape[-1] - 1)
     # one buffer may serve every row of a batch

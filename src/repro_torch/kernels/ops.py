@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core._tensor import stable_partition_order
 from repro_torch.core.requests import PAD_OFFSET, RequestList
 from repro_torch.kernels import coalesce_kernel, flash, fused_round
 from repro_torch.kernels import pack as pack_mod
@@ -84,12 +85,78 @@ def sort_requests_with(r: RequestList, starts: torch.Tensor):
             ss[:, :cap].reshape(shape))
 
 
+def _coalesce_pass(off: torch.Tensor, ln: torch.Tensor, shift: int):
+    """One kernel pass over the blocks of ``[b, n]`` rows that start at
+    ``shift`` (the entries before the first and after the last whole
+    block are left as they are), then the row's runs compacted to its
+    front in order. Returns ``(offsets, lengths, counts)``."""
+    rows, n = off.shape
+    block = coalesce_kernel.MAX_BLOCK
+    span = (n - shift) // block * block
+    end = shift + span
+    co, cl, cnt = coalesce_kernel.coalesce(
+        off[:, shift:end].reshape(-1, block).contiguous(),
+        ln[:, shift:end].reshape(-1, block).contiguous())
+    live = torch.cat([
+        off[:, :shift] != PAD_OFFSET,
+        (torch.arange(block, device=off.device)
+         < cnt.unsqueeze(-1)).reshape(rows, span),
+        off[:, end:] != PAD_OFFSET], dim=1)
+    order = stable_partition_order(live)
+    count = live.sum(dim=1)
+    keep = torch.arange(n, device=off.device) < count.unsqueeze(-1)
+    out_off = torch.cat([off[:, :shift], co.reshape(rows, span),
+                         off[:, end:]], dim=1).gather(1, order)
+    out_len = torch.cat([ln[:, :shift], cl.reshape(rows, span),
+                         ln[:, end:]], dim=1).gather(1, order)
+    return (torch.where(keep, out_off, PAD_OFFSET),
+            torch.where(keep, out_len, 0), count)
+
+
+def _coalesce_rows(off: torch.Tensor, ln: torch.Tensor):
+    """``coalesce_kernel.coalesce`` for ``[b, n]`` rows of any power-of-two
+    length. A row longer than one block takes kernel passes over its
+    blocks, each compacting the row's runs to its front, so the runs
+    left to merge meet only across block edges. The passes' blocks start
+    at 0 and at half a block in turn, so every adjacent pair shares a
+    block in one of them; they go on until the runs fit in one block
+    (a last pass over them all) or two passes in a row merge nothing.
+    Merging runs in any order gives the single pass's runs, int32 wrap
+    included (a run ends where its last request ends). Such rows must
+    hold their padding at the tail and no offset of -1: the kernel
+    drops a run that starts a row at -1, and a block edge can fall on
+    any position."""
+    rows, n = off.shape
+    block = coalesce_kernel.MAX_BLOCK
+    if n <= block:
+        return coalesce_kernel.coalesce(off, ln)
+    pad = off == PAD_OFFSET
+    if bool((pad[:, :-1] & ~pad[:, 1:]).any() or (off == -1).any()):
+        raise ValueError(
+            f"coalesce of rows longer than {block} takes padding only at "
+            "a row's tail and no offset of -1")
+    count = (~pad).sum(dim=1)
+    idle, shift = 0, 0
+    while idle < 2:
+        m = int(count.max().item())
+        if m <= block:
+            k = _next_pow2(m)
+            co, cl, cnt = coalesce_kernel.coalesce(off[:, :k].contiguous(),
+                                                   ln[:, :k].contiguous())
+            return (_pad_block(co, n, PAD_OFFSET), _pad_block(cl, n, 0),
+                    cnt)
+        off, ln, new = _coalesce_pass(off, ln, shift)
+        idle = idle + 1 if torch.equal(new, count) else 0
+        count, shift = new, block // 2 - shift
+    return off, ln, count.to(torch.int32)
+
+
 def coalesce(r: RequestList) -> RequestList:
     """Kernel-backed ``coalesce.coalesce_sorted``."""
     cap = r.capacity
     lead = r.offsets.shape[:-1]
     n = _next_pow2(cap)
-    co, cl, cnt = coalesce_kernel.coalesce(
+    co, cl, cnt = _coalesce_rows(
         _pad_block(r.offsets.reshape(-1, cap), n, PAD_OFFSET),
         _pad_block(r.lengths.reshape(-1, cap), n, 0))
     shape = (*lead, cap)

@@ -22,7 +22,8 @@ from repro.kernels import coalesce_kernel as j_ck  # noqa: E402
 
 from repro_torch.kernels import ref as t_ref  # noqa: E402
 
-from test_torch_cuda import PAD, _coalesce_case  # noqa: E402
+from test_torch_cuda import (PAD, _coalesce_case,  # noqa: E402
+                             _long_coalesce_case)
 
 TILE = t_ref.COALESCE_TILE
 # (case, rows, n): one to eight tiles a row, ragged last tiles, runs
@@ -78,3 +79,39 @@ def test_tiled_model_counts_and_runs():
     o, ln, c = _check(offs, lens, 8)
     assert int(c[0]) == 1 and int(o[0, 0]) == 0 and int(ln[0, 0]) == 120
     assert (o[0, 1:] == PAD).all() and (ln[0, 1:] == 0).all()
+
+
+@pytest.mark.parametrize("case,rows,n", [
+    ("tail", 3, 65536), ("tail", 2, 131072), ("long_runs", 2, 65536),
+    ("all_pad", 3, 65536), ("interspersed", 2, 65536), ("wrap", 2, 65536),
+    ("few_runs", 2, 131072), ("many_runs", 2, 131072),
+    ("edges", 2, 131072), ("edges", 3, 65536)])
+def test_ops_coalesce_of_rows_longer_than_one_block(case, rows, n):
+    """``ops.coalesce`` takes rows longer than the kernel's 32768 (TAM
+    stage 1 at 1024 requests a rank): its passes over blocks, also when
+    more runs are left than one block holds, equal the plain version on
+    the whole row."""
+    from repro_torch.core.requests import RequestList
+    from repro_torch.kernels import ops
+    offs, lens = _long_coalesce_case(np.random.default_rng(n + rows), case,
+                                     rows, n)
+    o, ln = torch.from_numpy(offs), torch.from_numpy(lens)
+    got = ops.coalesce(RequestList(o, ln, torch.zeros(rows,
+                                                      dtype=torch.int32)))
+    want = t_ref.coalesce_ref(o, ln)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["tail", "interspersed", "wrap",
+                                  "neg_start"])
+def test_ops_coalesce_refuses_long_rows_it_cannot_cut(case):
+    """Rows longer than one block with padding inside their live part or
+    an offset of -1 (which sorted lists do not hold) raise."""
+    from repro_torch.core.requests import RequestList
+    from repro_torch.kernels import ops
+    offs, lens = _coalesce_case(np.random.default_rng(1), case, 2, 65536)
+    with pytest.raises(ValueError, match="padding only at a row's tail"):
+        ops.coalesce(RequestList(torch.from_numpy(offs),
+                                 torch.from_numpy(lens),
+                                 torch.zeros(2, dtype=torch.int32)))

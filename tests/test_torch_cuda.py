@@ -181,6 +181,37 @@ def _coalesce_case(rng, case, batch, n):
     return offs.astype(np.int32), lens.astype(np.int32)
 
 
+def _pads_to_tail(offs, lens):
+    """Each row's padding moved behind its live entries, in order."""
+    order = np.argsort(offs == PAD, axis=1, kind="stable")
+    return (np.take_along_axis(offs, order, 1),
+            np.take_along_axis(lens, order, 1))
+
+
+def _long_coalesce_case(rng, case, rows, n):
+    """Rows longer than the kernel's block for ``ops.coalesce``, padding
+    at the tail only: ``_coalesce_case``'s cases with their pads moved
+    to the tail; ``few_runs`` one run a row across a block edge, the
+    rest padding; ``many_runs`` more runs than one block holds, none
+    merging; ``edges`` as many runs, merging only across the block
+    edges of a row."""
+    if case in ("few_runs", "many_runs", "edges"):
+        offs = np.full((rows, n), PAD, np.int32)
+        lens = np.zeros((rows, n), np.int32)
+        live = 40000 if case == "few_runs" else n - n // 4
+        step = 3 if case == "few_runs" else 3 + rng.integers(0, 2, n)
+        offs[:, :live] = np.cumsum(np.broadcast_to(step, (n,)))[:live] - 3
+        lens[:, :live] = 3 if case == "few_runs" else 2
+        if case == "few_runs":
+            offs[1, 20000:40000] += 1
+        if case == "edges":
+            block = t_ck.MAX_BLOCK
+            ends = np.arange(block - 1, live - 1, block)
+            lens[:, ends] = offs[0, ends + 1] - offs[0, ends]
+        return offs, lens
+    return _pads_to_tail(*_coalesce_case(rng, case, rows, n))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,batch,case", [
     (8, 1, "tail"), (100, 3, "tail"), (4096, 7, "tail"),
@@ -778,3 +809,134 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def _host_reqs(n_ranks, seed):
+    from repro_torch.io_patterns.generators import (e3sm_g_pattern,
+                                                    sparse_checkpoint_pattern)
+    if seed % 2:
+        return sparse_checkpoint_pattern(n_ranks, pages_per_rank=8,
+                                         page_bytes=512, seed=seed)
+    return e3sm_g_pattern(n_ranks, reqs_per_rank=16, req_bytes=96,
+                          seed=seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [4096, 1 << 30])
+@pytest.mark.parametrize("case", ["sorted", "nested"])
+def test_cuda_domain_image_packs_uint8_windows_equal_to_plain(cuda, case,
+                                                             window):
+    """``host_exec.domain_image`` on the card launches ``pack`` on uint8
+    window images, one per window, equal to ``pack_ref`` on the CPU."""
+    from repro_torch.checkpoint import host_exec
+    from repro_torch.kernels import pack as t_pack
+    rng = np.random.default_rng(3)
+    lens = rng.integers(1, 300, 2000).astype(np.int64)
+    offs = np.cumsum(lens + rng.integers(0, 40, 2000)) - lens
+    if case == "nested":
+        offs[1::7] = offs[0::7][:offs[1::7].size] + 1
+        lens[1::7] = 1
+        order = np.argsort(offs, kind="stable")
+        offs, lens = offs[order], lens[order]
+    packed = rng.integers(1, 256, int(lens.sum())).astype(np.uint8)
+    args = [torch.from_numpy(x) for x in (offs, lens, packed)]
+    want = host_exec.domain_image(*args, 0, 1 << 22, 1, window=window)
+    before = t_pack.pack.launches
+    got = host_exec.domain_image(*(a.to(cuda) for a in args), 0, 1 << 22,
+                                 1, window=window)
+    n_win = -(-want.numel() // min(window, host_exec.MAX_PACK_WINDOW))
+    assert 0 < t_pack.pack.launches - before <= n_win
+    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["tam", "twophase"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_host_write_and_read_equal_the_cpu(cuda, tmp_path, method, seed):
+    """The host executor on the card writes the CPU's segments with the
+    same modeled timings, and its read returns the CPU's bytes."""
+    from repro_torch.checkpoint import HostCollectiveIO
+    from repro_torch.core.plan import IOConfig
+    from repro_torch.kernels import pack as t_pack
+    reqs = _host_reqs(16, seed)
+    cfg = IOConfig(req_cap=0, data_cap=0, cb_buffer_size=1024,
+                   pipeline=True, slow_hop_codec="rle" if seed else None)
+    out = {}
+    for dev in ("cpu", cuda):
+        io = HostCollectiveIO(n_ranks=16, n_nodes=4, stripe_size=1024,
+                              stripe_count=4, device=dev)
+        path = str(tmp_path / str(dev).replace(":", ""))
+        before = t_pack.pack.launches
+        t = io.write(reqs, path, method=method, config=cfg)
+        launched = t_pack.pack.launches - before
+        got, tr = io.read([(o, ln) for o, ln, _ in reqs], path, config=cfg)
+        assert all(x.device.type == torch.device(dev).type for x in got)
+        out[str(dev)] = (
+            [open(f"{path}.seg{g}", "rb").read() for g in range(4)],
+            {k: v for k, v in vars(t).items() if k != "plan_seconds"},
+            [x.cpu().numpy().tobytes() for x in got],
+            {k: v for k, v in vars(tr).items() if k != "plan_seconds"},
+            launched)
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert cpu[0] == card[0] and cpu[1] == card[1]
+    assert cpu[2] == card[2] and cpu[3] == card[3]
+    assert cpu[4] == 0 and card[4] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["tam", "twophase"])
+def test_cuda_mp_write_after_cuda_is_initialised(cuda, tmp_path, method):
+    """The mp executor forks its workers after the card is in use; the
+    workers touch host copies only, and the segments equal the host
+    executor's on the card."""
+    from repro_torch.checkpoint import HostCollectiveIO
+    from repro_torch.core.plan import IOConfig
+    torch.ones(1, device=cuda).sum().item()        # CUDA initialised
+    reqs = _host_reqs(16, 0)
+    io = HostCollectiveIO(n_ranks=16, n_nodes=4, stripe_size=1024,
+                          stripe_count=2, device=cuda)
+    segs = []
+    for name, transport in (("h", None), ("m", "mp")):
+        cfg = IOConfig(req_cap=0, data_cap=0, cb_buffer_size=256,
+                       pipeline=True, slow_hop_codec="rle",
+                       transport=transport)
+        t = io.write(reqs, str(tmp_path / name), method=method, config=cfg)
+        assert t.transport == transport
+        segs.append([open(str(tmp_path / f"{name}.seg{g}"), "rb").read()
+                     for g in range(2)])
+    assert segs[0] == segs[1]
+    got, _ = io.read([(o, ln) for o, ln, _ in reqs], str(tmp_path / "m"),
+                     config=IOConfig(req_cap=0, data_cap=0,
+                                     cb_buffer_size=256, transport="mp"))
+    for x, (_, _, d) in zip(got, reqs):
+        assert x.device.type == "cuda"
+        np.testing.assert_array_equal(x.cpu().numpy(), d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,rows,n", [
+    ("long_runs", 16, 131072), ("all_pad", 16, 131072),
+    ("tail", 3, 65536), ("wrap", 2, 65536), ("few_runs", 2, 131072),
+    ("many_runs", 4, 131072), ("edges", 4, 131072)])
+def test_cuda_ops_coalesce_of_rows_longer_than_one_block(cuda, case, rows,
+                                                         n, monkeypatch):
+    """TAM stage 1 at 1024 requests a rank gives rows of 131072: the
+    wrapper's kernel passes on the card equal the plain version on the
+    whole row, with more runs than one block holds too, and no plain
+    version runs on the card."""
+    from repro_torch.kernels import ops as t_ops
+    offs, lens = _long_coalesce_case(np.random.default_rng(7), case, rows,
+                                     n)
+    o, ln = _t(offs).to(cuda), _t(lens).to(cuda)
+    want = t_ref.coalesce_ref(o, ln)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain coalesce ran on the card")
+    monkeypatch.setattr(t_ref, "coalesce_ref", refuse)
+    monkeypatch.setattr(t_ck, "coalesce_ref", refuse)
+    before = t_ck.coalesce.launches
+    got = t_ops.coalesce(t_rq.RequestList(o, ln, torch.zeros(
+        rows, dtype=torch.int32, device=cuda)))
+    assert t_ck.coalesce.launches > before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

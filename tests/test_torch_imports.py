@@ -46,7 +46,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.core, repro_torch.kernels.ops, "
             "repro_torch.kernels.ref, repro_torch.io_patterns.generators, "
             "repro_torch.configs, repro_torch.models.transformer, "
-            "repro_torch.models.weights, repro_torch.launch.serve; "
+            "repro_torch.models.weights, repro_torch.launch.serve, "
+            "repro_torch.checkpoint.host_io, repro_torch.checkpoint.mp_exec, "
+            "repro_torch.core.session, repro_torch.core.faults, "
+            "repro_torch.core.transport, repro_torch.runtime.elastic, "
+            "repro_torch.runtime.heartbeat; "
             "[repro_torch.configs.get(a) for a in repro_torch.configs.ARCHS]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
@@ -64,6 +68,7 @@ def _entry_points():
                                   make_tam_write, make_twophase_read,
                                   make_twophase_write, requests_from_numpy)
     from repro_torch import configs
+    from repro_torch.checkpoint import HostCollectiveIO
     from repro_torch.models import transformer as T
     from repro_torch.models.config import reduced
     from repro_torch.models.weights import params_from_numpy
@@ -88,6 +93,8 @@ def _entry_points():
                                                               **kw),
         "params_from_numpy": lambda **kw: params_from_numpy(
             {"w": np.zeros(2, np.float32)}, **kw),
+        "host_collective_io": lambda **kw: HostCollectiveIO(
+            n_ranks=4, n_nodes=2, stripe_size=64, stripe_count=2, **kw),
     }
 
 
