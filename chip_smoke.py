@@ -45,12 +45,24 @@ bfloat16 and uint8 payloads), then drives the main paths:
   run requires); its logits are checked
   against ``forward`` and against attention forced through the plain
   version, and the attention of its first local and first global layer
-  against the plain version, where planted faults must fail.
+  against the plain version, where planted faults must fail;
+* training with checkpoint and restart (``phase_train``): the attention
+  backward kernel (``csrc/flash_bwd.cu``) held against the autograd
+  gradient of the plain attention at the training shapes, f32 and bf16,
+  with planted faults that must fail and bit-equal repeats; then
+  gemma2-9b at full width cut to 2 layers, f32 parameters, batch 1 x
+  4096 tokens, through ``launch.train.build_training``: 4 uninterrupted
+  steps, and a run that saves a TAM checkpoint at step 2 (``pack``
+  builds its images), loses a host, restarts at ``find_restart_step``,
+  restores the state byte for byte and resumes to the control's losses;
+  the save's largest ``pack`` call (a 1 GiB window of a domain image)
+  is held to ``pack_ref`` exactly and timed.
 
 Every phase prints one JSON line; any failed check raises, and the run
 exits non-zero. The line before the last lists every kernel with its
 launches on the main paths, its time, its bound and the plain and library
-times (``pack`` at its shape on the host path; for attention with the
+times (``pack`` at its largest shape, in a training save, with its
+host-path and drain-window cases beside; for attention with the
 softcap, the library is
 ``flex_attention``, compiled by ``torch.compile`` with its caches under
 ``build/``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -91,6 +103,8 @@ REPLACES = {
     "zero_skip_decode": "src/repro/kernels/fused_round.py:172",
     "pack": "src/repro/kernels/pack.py:56",
     "flash_attention_fused": "src/repro/kernels/flash.py:92",
+    "flash_attention_bwd": "XLA autodiff of models.layers.flash_attention "
+                           "(no Pallas kernel)",
 }
 SOURCES = {
     "bitonic_sort": "src/repro_torch/kernels/csrc/sort.cu",
@@ -100,6 +114,7 @@ SOURCES = {
     "zero_skip_decode": "src/repro_torch/kernels/csrc/zero_skip.cu",
     "pack": "src/repro_torch/kernels/csrc/pack.cu",
     "flash_attention_fused": "src/repro_torch/kernels/csrc/flash.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_bwd.cu",
 }
 TABLE = (   # every pallas_call of the reference, by def line
     ("fused_sort_pack", "src/repro/kernels/fused_round.py:64", "ported"),
@@ -109,6 +124,8 @@ TABLE = (   # every pallas_call of the reference, by def line
     ("zero_skip_decode", "src/repro/kernels/fused_round.py:172", "ported"),
     ("pack", "src/repro/kernels/pack.py:56", "ported"),
     ("flash_attention_fused", "src/repro/kernels/flash.py:92", "ported"),
+    ("flash_attention_bwd", REPLACES["flash_attention_bwd"],
+     "new: no TPU counterpart (the gradient of the ported attention)"),
 )
 FLASH_SOURCES = ["src/repro_torch/kernels/csrc/flash.cu",
                  "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -993,7 +1010,8 @@ PORT_KERNELS = ("sort_blocks_kernel", "sort_merge_kernel",
                 "zero_skip_encode_chunks_kernel", "zero_skip_zero_kernel",
                 "zero_skip_scatter_kernel", "flash_attention_kernel",
                 "flash_tc_prefill_kernel", "flash_split_decode_kernel",
-                "flash_split_merge_kernel")
+                "flash_split_merge_kernel", "flash_bwd_stats_kernel",
+                "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 
 
 @contextlib.contextmanager
@@ -1852,6 +1870,490 @@ def phase_mp(torch, dev):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_LAYERS = 2              # one local and one global layer (a period)
+TRAIN_SEQ = 4096              # the reference's train_4k
+TRAIN_BATCH = 1               # cut from train_4k's 256
+TRAIN_STEPS = 4
+TRAIN_FAIL_AFTER = 2          # checkpoint at 2, the host dies before 3
+TRAIN_LOSS_REL = 1e-4         # resumed vs uninterrupted losses
+# the backward kernel vs flash_attention_bwd_ref given the plain
+# forward's output: per element |got - want| <= rtol |want| + atol
+# max|want|, and a relative L2 distance. dP and dv are rounded to bf16,
+# and a sum in another order may round to a neighbour (two ulps across
+# a power of two): rtol 1.6e-2; a dP rounded the other way under a
+# probability near 1 moves dq and dk by up to about 1.7e-3 of their
+# largest element in f32 (the flash_attention_bwd lines' max_abs_err
+# over max_abs_want). The L2 limit is what a wrong gradient fails
+# (planted faults: 2e-2 and up)
+BWD_TOL = {"float32": {"rtol": 1.6e-2, "atol": 2e-3, "rel_l2": 1e-4},
+           "bfloat16": {"rtol": 1.6e-2, "atol": 1e-2, "rel_l2": 1e-2}}
+# (name, dtype, window): gemma2-9b's attention at the training path's
+# shape, q [1, 4096, 16, 256] against k, v [1, 4096, 8, 256], causal,
+# softcap 50: the global layer, the local layer (window 4096 masks
+# nothing at 4096 tokens), a window of 1024 (where one key more or less
+# changes the gradient: the off-by-one fault), and bf16
+BWD_CASES = (("global", "float32", None), ("window_4096", "float32", 4096),
+             ("window_1024", "float32", 1024),
+             ("global_bf16", "bfloat16", None))
+BWD_LIBRARY = ("none: SDPA's and flex_attention's backward keep p.v and "
+               "dP in f32, the model's attention rounds them to bf16")
+
+
+def bwd_err(got, want, dname) -> dict:
+    """Every element and the relative L2 distance of one gradient
+    against the plain one, under ``BWD_TOL``."""
+    tol = BWD_TOL[dname]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    scale = float(w.abs().max())
+    rel = float((g - w).norm() / w.norm().clamp(min=1e-30))
+    return {"max_abs_err": float(err.max()), "max_abs_want": scale,
+            "rel_l2": rel,
+            "within": bool((err <= tol["rtol"] * w.abs()
+                            + tol["atol"] * scale).all())
+            and rel <= tol["rel_l2"]}
+
+
+def grads_err(got, want, dname) -> dict:
+    per = {n: bwd_err(g, w, dname) for n, g, w in
+           zip(("dq", "dk", "dv"), got, want)}
+    return {"per_grad": per, "within": all(c["within"] for c in per.values()),
+            "max_abs_err": max(c["max_abs_err"] for c in per.values())}
+
+
+def bwd_bound(torch, q_shape, k_shape, itemsize, causal, window):
+    """``(bound_ms, bound_by, pairs, f32_cores_ms)`` of one backward:
+    q, k, v, out and dout read once and dq, dk, dv written once at the
+    memory rate, against 2.5x the forward's operations (five products of
+    hd a visible pair: S, dP, dV, dK, dQ) at the dense tensor-core rate
+    of the type (TF32 for f32: the least time the card could take; the
+    kernel itself runs f32 FMAs, whose time at 67 TFLOP/s is beside)."""
+    b, sq, hq, hd = q_shape
+    pairs, _ = attention_work(torch, b, sq, hq, k_shape[1], causal, window,
+                              0, None)
+    ops = 10 * hd * pairs
+    peak = BF16_OPS_PER_S if itemsize == 2 else TF32_OPS_PER_S
+    t_ops = ops / peak * 1e3
+    n_q = b * sq * hq * hd
+    n_k = k_shape[0] * k_shape[1] * k_shape[2] * k_shape[3]
+    t_bytes = (4 * n_q + 4 * n_k) * itemsize / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", pairs, ops / FP32_OPS_PER_S * 1e3)
+
+
+def phase_train_kernel(torch, dev, reps):
+    """``flash_attention_bwd`` against ``flash_attention_bwd_ref`` at the
+    training path's shapes (``BWD_CASES``; q and k of std 2, so the
+    logits span a few units and the softcap bends them), both given the
+    plain forward's output: every gradient within ``BWD_TOL``, two runs
+    bit-equal, and planted faults failing the check: the softcap's
+    derivative dropped (the plain backward through a straight-through
+    tanh), the window one key short (the kernel at ``window - 1``, where
+    the window masks keys) and the D term dropped (the kernel given a
+    zero ``out``: D = dO' . out). Returns the global f32 case's line with
+    the others beside it."""
+    from unittest import mock
+    from repro_torch.kernels import flash, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    flush = torch.empty(1 << 25, dtype=torch.int32, device=dev)
+    b, s, hq, hkv, hd = TRAIN_BATCH, TRAIN_SEQ, 16, 8, 256
+    recs = {}
+    tanh = torch.tanh
+    for name, dname, window in BWD_CASES:
+        dtype = getattr(torch, dname)
+        q, k = ((2 * torch.randn(sh, generator=gen, device=dev)).to(dtype)
+                for sh in ((b, s, hq, hd), (b, s, hkv, hd)))
+        v = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(dtype)
+        dout = torch.randn((b, s, hq, hd), generator=gen,
+                           device=dev).to(dtype)
+        kw = dict(causal=True, window=window, logit_cap=50.0, q_offset=0,
+                  kv_len=None)
+        out = ref.flash_attention_ref(q, k, v, **kw)
+        before = flash.flash_attention_bwd.launches
+        got = flash.flash_attention_bwd(q, k, v, out, dout, **kw)
+        again = flash.flash_attention_bwd(q, k, v, out, dout, **kw)
+        require(flash.flash_attention_bwd.launches == before + 2,
+                f"bwd {name}: launches")
+        bit_equal = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        want = ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+        check = grads_err(got, want, dname)
+        planted = {}
+        with mock.patch.object(torch, "tanh",
+                               lambda x: x + (tanh(x) - x).detach()):
+            planted["softcap_derivative_dropped"] = grads_err(
+                ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw),
+                want, dname)
+        if window is not None and s > window:
+            planted["window_short_one"] = grads_err(
+                flash.flash_attention_bwd(q, k, v, out, dout,
+                                          **{**kw, "window": window - 1}),
+                want, dname)
+        planted["d_dropped"] = grads_err(flash.flash_attention_bwd(
+            q, k, v, torch.zeros_like(out), dout, **kw), want, dname)
+        del got, want
+        bound_ms, bound_by, pairs, f32_ms = bwd_bound(
+            torch, q.shape, k.shape, q.element_size(), True, window)
+        rec = {"case": name, "dtype": dname, "q": list(q.shape),
+               "kv": list(k.shape), "causal": True, "window": window,
+               "logit_cap": 50.0, "max_abs_err": check["max_abs_err"],
+               "grads": check["per_grad"], "tol": BWD_TOL[dname],
+               "bit_equal_repeat": bit_equal,
+               "planted_within": {f: c["within"] for f, c in planted.items()},
+               "planted_rel_l2": {f: {n: c["per_grad"][n]["rel_l2"]
+                                      for n in c["per_grad"]}
+                                  for f, c in planted.items()},
+               "pairs": pairs,
+               "ms": time_ms(torch, lambda: flash.flash_attention_bwd(
+                   q, k, v, out, dout, **kw), reps, flush),
+               "plain_ms": time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+                   q, k, v, out, dout, **kw), 2, flush),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "f32_cores_bound_ms": f32_ms, "library_ms": None,
+               "library": BWD_LIBRARY}
+        rec["achieved_tflops"] = 10 * hd * pairs / rec["ms"] / 1e9
+        emit({"phase": "kernel", "kernel": "flash_attention_bwd", **rec})
+        require(check["within"], f"bwd {name}: {check}")
+        require(bit_equal, f"bwd {name}: two runs differ")
+        for fault, c in planted.items():
+            require(not c["within"], f"bwd {name}: the planted fault "
+                    f"{fault} passes the check")
+        recs[name] = rec
+        del q, k, v, out, dout
+        torch.cuda.empty_cache()
+    del flush
+    main = recs["global"]
+    return {**main, "other_cases": {n: {k: r[k] for k in (
+        "dtype", "window", "ms", "bound_ms", "plain_ms", "max_abs_err")}
+        for n, r in recs.items() if n != "global"}}
+
+
+PACK_REF_CHUNK = 1 << 26   # positions pack_ref takes at a time in training
+
+
+def train_pack_case(torch, dev, calls, reps) -> dict:
+    """``ops.pack`` at the training path's shape: the largest of a save's
+    calls (one window of one domain image), exact against ``pack_ref``
+    and timed against it and the bound. ``pack_ref`` runs over the
+    window ``PACK_REF_CHUNK`` positions at a time (its int64
+    intermediates for a whole 1 GiB window would take some 40 GB beside
+    the training state); a chunk is the same call with the base moved on,
+    so the chunks join to the whole call's result."""
+    from repro_torch.kernels import ops, ref
+    r, st, data, base, out_len = max(calls, key=lambda c: c[4])
+
+    def plain(i, n):
+        return ref.pack_ref(r.offsets, r.lengths, st, data, int(base) + i, n)
+
+    def plain_all():
+        for i in range(0, out_len, PACK_REF_CHUNK):
+            plain(i, min(PACK_REF_CHUNK, out_len - i))
+
+    got = ops.pack(r, st, data, base, out_len)
+    err = 0
+    for i in range(0, out_len, PACK_REF_CHUNK):
+        n = min(PACK_REF_CHUNK, out_len - i)
+        err = max(err, max_abs_err(torch, (got[i:i + n],), (plain(i, n),)))
+    require(err == 0, "pack at the training shape != pack_ref")
+    del got
+    flush = torch.empty(1 << 25, dtype=torch.int32, device=dev)
+    cap = max(r.capacity, 2)
+    covered = int(r.lengths.to(torch.int64).sum().item())
+    b, by = bound(3 * cap * 4 + covered + out_len, out_len * math.log2(cap))
+    rec = {"shape": [r.capacity], "out_len": out_len, "covered": covered,
+           "dtype": "uint8", "calls_in_save": len(calls),
+           "out_lens_in_save": sorted(c[4] for c in calls),
+           "max_abs_err": err,
+           "ms": time_ms(torch, lambda: ops.pack(r, st, data, base, out_len),
+                         reps, flush),
+           "plain_ms": time_ms(torch, plain_all, reps, flush),
+           "plain_chunk": PACK_REF_CHUNK,
+           "library_ms": None, "bound_ms": b, "bound_by": by}
+    del flush
+    emit({"phase": "kernel", "kernel": "pack", "path": "train", **rec})
+    return rec
+
+
+def state_digest(torch, tree, chunk=1 << 26):
+    """Per leaf, two int64 sums over its bits (as int16 or int32 words):
+    the plain sum and one weighted by position mod 1021, computed on the
+    card in chunks; equal digests for equal bytes, and a byte that moves
+    or changes changes them."""
+    from repro_torch._tree import leaves_with_paths
+    out = []
+    for path, t in leaves_with_paths(tree):
+        flat = t.detach().reshape(-1)
+        word = torch.int16 if flat.element_size() == 2 else torch.int32
+        bits = flat.view(word) if flat.element_size() in (2, 4) \
+            else flat.view(torch.uint8)
+        s0 = s1 = 0
+        for i in range(0, bits.numel(), chunk):
+            x = bits[i:i + chunk].to(torch.int64)
+            w = torch.arange(i, i + x.numel(), device=x.device) % 1021 + 1
+            s0 += int(x.sum())
+            s1 += int((x * w).sum())
+        out.append((path, s0, s1))
+    return out
+
+
+def phase_train(torch, dev):
+    """Training with checkpoint and restart on the card, through
+    ``launch.train.build_training`` (the reference CLI's objects):
+    gemma2-9b at full width cut to ``TRAIN_LAYERS`` layers, f32
+    parameters seeded 0, ``adamw`` with ``warmup_cosine``, batch
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens of the synthetic pipeline, and
+    a TAM ``CheckpointManager`` on the reference's 8-rank writer.
+
+    1. An uninterrupted control of ``TRAIN_STEPS`` steps: its losses and
+       a digest of its final state kept on the host; each step split
+       into forward, backward and optimizer by CUDA events.
+    2. A faulty run: the loop checkpoints every ``TRAIN_FAIL_AFTER``
+       steps; after that step's save the heartbeat monitor loses a host
+       and the next step raises; ``find_restart_step`` names the step,
+       ``CheckpointManager.restore`` brings the state back (its digest
+       must equal the saved state's), and a new loop runs from there to
+       ``TRAIN_STEPS`` (saving again at its end).
+
+    Launch counts are set to 0 before the control and read after the
+    resumed run. Checks: the resumed losses equal the control's within
+    ``TRAIN_LOSS_REL`` (bit-equality printed), the seeded model's
+    logits through the kernels equal those with attention forced
+    through the plain version within ``SERVE_REL_L2``, the first loss is
+    finite and equals the seeded model's loss through the plain
+    attention within ``TRAIN_LOSS_REL``, and ``pack`` and both attention
+    kernels launched, and the attention routes' launches add up to the
+    kernel's. The first save's largest ``pack`` call is held to
+    ``pack_ref`` and timed after that save (``train_pack_case``; its
+    launches are not counted). Printed beside: ln(vocab), and the loss
+    on the positions whose label is not the input token (with tied
+    embeddings the input token's own logit, softcapped near 30,
+    dominates a seeded model's partition function). Returns the
+    launches, the attention launches by route and the ``pack`` case."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch import configs, kernels
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.kernels import flash, ref
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import HeartbeatMonitor, find_restart_step
+    cfg = dataclasses.replace(configs.get("gemma2_9b"),
+                              n_layers=TRAIN_LAYERS)
+    marks = []
+
+    def mark(what):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((what, e))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+
+    def fresh(sub, every, hook=None):
+        return build_training(
+            "gemma2_9b", cfg=cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+            seq=TRAIN_SEQ, lr=3e-3, ckpt_dir=os.path.join(tmp, sub),
+            ckpt_every=every, log_every=1, device=dev, phase_hook=hook)
+
+    saves = []
+
+    def take(run):
+        """The run's initial state, dropped from the run, so the loop
+        frees it once its first step has replaced it."""
+        state = (run.params, run.opt_state)
+        run.params = run.opt_state = None
+        return state
+
+    pack_case = {}
+
+    def timed_saves(mgr):
+        """Time each of the manager's saves (wall, peak memory, pack
+        launches, IOTimings) and keep the saved state's digest. The
+        first save's largest ``pack`` call is held to ``pack_ref`` and
+        timed once the save is done (``pack_case``); those launches are
+        counted apart and taken off the phase's count."""
+        save = mgr.save
+
+        def run(tree, step, faults=None):
+            digest = state_digest(torch, tree)
+            calls = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            pack0 = kernels.launch_counts()["pack"]
+            t0 = time.perf_counter()
+            with watching_pack(calls if not saves else []):
+                timings = save(tree, step, faults)
+            torch.cuda.synchronize()
+            saves.append({"step": step,
+                          "wall_s": time.perf_counter() - t0,
+                          "peak_mem_bytes":
+                              torch.cuda.max_memory_allocated(dev),
+                          "pack_launches":
+                              kernels.launch_counts()["pack"] - pack0,
+                          "timings": timings_dict(timings),
+                          "digest": digest})
+            if calls:
+                pack0 = kernels.launch_counts()["pack"]
+                pack_case.update(train_pack_case(torch, dev, calls, REPS))
+                pack_case["check_launches"] = \
+                    kernels.launch_counts()["pack"] - pack0
+            return timings
+        mgr.save = run
+
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_phase = time.perf_counter()
+        control = fresh("control", 10 ** 9, mark)
+        n_params = sum(p.numel() for p in leaves(control.params))
+        # the seeded model's logits: kernels vs plain attention, and the
+        # loss where the label is not the input token
+        batch0 = control.data.batch_at(0)
+        with torch.no_grad():
+            logits_k, _ = T.forward(control.params, cfg, batch0)
+            with patched_attention(layers, lambda _: ref.flash_attention_ref):
+                logits_p, _ = T.forward(control.params, cfg, batch0)
+            vs_plain = logit_stats(torch, logits_k, logits_p)
+            lab = batch0["labels"][..., None].long()
+            nll_p = torch.logsumexp(logits_p, -1) - torch.take_along_dim(
+                logits_p, lab, -1)[..., 0]
+            del logits_p
+            nll = torch.logsumexp(logits_k, -1) - torch.take_along_dim(
+                logits_k, lab, -1)[..., 0]
+            del logits_k
+            other = batch0["labels"] != batch0["tokens"]
+            nll_other = float(nll[other].mean())
+            loss0_eval, loss0_plain = float(nll.mean()), float(nll_p.mean())
+            del nll, nll_p
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        loop_c = control.loop()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_c, o_c, _ = loop_c.run(*take(control))
+        torch.cuda.synchronize()
+        control_wall = time.perf_counter() - t0
+        losses_c = list(loop_c.losses)
+        digest_c = state_digest(torch, {"params": p_c, "opt": o_c})
+        steps_ms = []
+        for i in range(0, len(marks), 4):
+            (_, a), (_, f), (_, bw), (_, o) = marks[i:i + 4]
+            steps_ms.append({"forward_ms": a.elapsed_time(f),
+                             "backward_ms": f.elapsed_time(bw),
+                             "optimizer_ms": bw.elapsed_time(o),
+                             "step_ms": a.elapsed_time(o)})
+        phase_peak = torch.cuda.max_memory_allocated(dev)
+        emit({"phase": "train", "run": "control", "arch": cfg.name,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "params": n_params,
+              "param_dtype": "float32",
+              "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+              "steps": TRAIN_STEPS, "wall_s": control_wall,
+              "losses": losses_c, "steps_ms": steps_ms,
+              "peak_mem_bytes": phase_peak,
+              "logits_kernel_vs_plain": vs_plain,
+              "loss_seeded": loss0_eval, "loss_seeded_plain": loss0_plain,
+              "loss_label_not_input": nll_other,
+              "ln_vocab": math.log(cfg.vocab),
+              "label_is_input_share": 1.0 - float(other.float().mean())})
+        del p_c, o_c, control, loop_c
+        torch.cuda.empty_cache()
+
+        # the faulty run: save at TRAIN_FAIL_AFTER, lose a host, restart
+        faulty = fresh("faulty", TRAIN_FAIL_AFTER)
+        timed_saves(faulty.ckpt)
+        monitor = HeartbeatMonitor(n_hosts=2, timeout_s=1e9)
+
+        def on_step(step, loss):
+            if step == TRAIN_FAIL_AFTER:
+                monitor.inject_failure(1)
+
+        loop_f = faulty.loop(monitor)
+        # restore takes the structure and each leaf's device from this
+        like = tree_map(lambda t: torch.empty(0, device=t.device),
+                        {"params": faulty.params, "opt": faulty.opt_state})
+        failed = None
+        try:
+            loop_f.run(*take(faulty), on_step=on_step)
+        except RuntimeError as exc:
+            failed = str(exc)
+        require(failed is not None and "host failure" in failed,
+                f"train: the lost host did not stop the loop ({failed})")
+        losses_f = list(loop_f.losses)
+        start = find_restart_step(faulty.ckpt.directory)
+        require(start == TRAIN_FAIL_AFTER,
+                f"train: find_restart_step gave {start}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, step, r_timings = faulty.ckpt.restore(like, start,
+                                                     with_timings=True)
+        torch.cuda.synchronize()
+        restore = {"wall_s": time.perf_counter() - t0,
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                   "timings": timings_dict(r_timings)}
+        torch.cuda.empty_cache()
+        restored_equal = state_digest(torch, state) == saves[0]["digest"]
+        require(step == start and restored_equal,
+                "train: the restored state differs from the saved one")
+        loop_r = faulty.loop()
+        final = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        prof = profile_write(torch, lambda: final.append(loop_r.run(
+            state["params"], state["opt"], start_step=start)), ())
+        losses_r = list(loop_r.losses)
+        launches = kernels.launch_counts()
+        routes = dict(flash.flash_attention_fused.launches_by_route)
+        require(bool(pack_case), "train: no pack call to hold to pack_ref")
+        launches["pack"] -= pack_case["check_launches"]
+        phase_peak = max([phase_peak, restore["peak_mem_bytes"],
+                          torch.cuda.max_memory_allocated(dev)]
+                         + [sv["peak_mem_bytes"] for sv in saves])
+        del state
+        p_r, o_r, _ = final.pop()
+        digest_r = state_digest(torch, {"params": p_r, "opt": o_r})
+        del p_r, o_r
+        resumed = losses_f + losses_r
+        bit_equal = resumed == losses_c
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses_c)) \
+            if len(resumed) == len(losses_c) else math.inf
+        emit({"phase": "train", "run": "faulty_and_resumed",
+              "failure": failed, "restart_step": start,
+              "losses_before_failure": losses_f, "losses_resumed": losses_r,
+              "losses_control": losses_c, "losses_bit_equal": bit_equal,
+              "max_rel_diff": rel,
+              "final_state_bit_equal_control": digest_r == digest_c,
+              "saves": [{k: v for k, v in sv.items() if k != "digest"}
+                        for sv in saves],
+              "saves_note": "the save after the restart ran under the "
+                            "profiler (resumed_profile)",
+              "restore": restore, "restored_equals_saved": restored_equal,
+              "resumed_profile": prof, "launches": launches,
+              "flash_launches_by_route": routes,
+              "phase_peak_mem_bytes": phase_peak,
+              "phase_wall_s": time.perf_counter() - t_phase})
+        require(len(resumed) == len(losses_c) and rel <= TRAIN_LOSS_REL,
+                f"train: resumed losses {resumed} vs control {losses_c}")
+        require(math.isfinite(losses_c[0]) and abs(
+            losses_c[0] - loss0_plain) <= TRAIN_LOSS_REL * abs(loss0_plain),
+            f"train: first loss {losses_c[0]} vs the plain attention's "
+            f"{loss0_plain}")
+        require(vs_plain["rel_l2"] <= SERVE_REL_L2,
+                f"train: logits through the kernels vs plain: {vs_plain}")
+        for k in ("pack", "flash_attention_fused", "flash_attention_bwd"):
+            require(launches[k] > 0, f"train: {k} never launched")
+        require(sum(routes.values()) == launches["flash_attention_fused"],
+                f"train: flash routes {routes} vs {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches, routes, pack_case
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # torch.compile (flex_attention's library time) keeps its caches in
@@ -1900,12 +2402,19 @@ def main() -> int:
     hosted, pack_rec = phase_host(torch, dev, REPS)
     phase_mp(torch, dev)
     served, served_routes = phase_serve(torch, dev)
+    measured["flash_attention_bwd"] = phase_train_kernel(torch, dev, REPS)
+    trained, trained_routes, train_pack = phase_train(torch, dev)
     launches = {k: launches[k] + patterns[k] + hosted[k] + served[k]
-                for k in launches}
-    # pack's line: its shape on the host path, where it launches; the
-    # drain-window case of phase_pack beside it
+                + trained[k] for k in launches}
+    routes = {r: served_routes[r] + trained_routes[r] for r in served_routes}
+    require(sum(routes.values()) == launches["flash_attention_fused"],
+            f"flash routes {routes} vs {launches['flash_attention_fused']}")
+    # pack's line: its largest shape, a window of a training save's
+    # domain image; the host path's and the drain window's cases beside
+    case_keys = ("shape", "out_len", "max_abs_err", "ms", "plain_ms",
+                 "bound_ms")
     window_case = measured["pack"]
-    measured["pack"] = pack_rec
+    measured["pack"] = train_pack
     require(hosted["pack"] > 0, "host: pack never launched")
     flash_rec = measured["flash_attention_fused"]
     extra = {"flash_attention_fused": {   # beyond the contract's keys
@@ -1913,13 +2422,21 @@ def main() -> int:
         "kernel_route": flash_rec["route"],
         "library": flash_rec["library"],
         "nocap_case": flash_rec["nocap_case"],
-        "launches_by_route": served_routes},
-        "pack": {"path": "host executor domain images (phase_host)",
-                 "shape": pack_rec["shape"], "out_len": pack_rec["out_len"],
-                 "window_case": {k: window_case[k] for k in (
-                     "shape", "out_len", "ms", "plain_ms", "bound_ms")}}}
+        "launches_by_route": routes},
+        "pack": {"path": "a training save's domain image (phase_train)",
+                 "shape": train_pack["shape"],
+                 "out_len": train_pack["out_len"],
+                 "plain_chunk": train_pack["plain_chunk"],
+                 "host_case": {k: pack_rec[k] for k in case_keys},
+                 "window_case": {k: window_case[k] for k in case_keys}}}
     require(served["flash_attention_fused"] > 0,
             "serve: flash_attention_fused never launched")
+    bwd_rec = measured["flash_attention_bwd"]
+    extra["flash_attention_bwd"] = {
+        "path": "training (phase_train): every backward of every layer",
+        "case": bwd_rec["case"], "other_cases": bwd_rec["other_cases"],
+        "f32_cores_bound_ms": bwd_rec["f32_cores_bound_ms"],
+        "library": bwd_rec["library"]}
 
     emit({"phase": "kernel_status",
           "table": [{"name": n, "replaces": r, "status": s,

@@ -36,8 +36,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import placement as placement_mod
-from repro_torch.core._tensor import (byte_index, exclusive_cumsum,
-                                      repeat_index, to_host)
+from repro_torch.core._tensor import (cat_views, exclusive_cumsum,
+                                      gather_spans, repeat_index,
+                                      scatter_spans, to_host)
 from repro_torch.core.codec import get_codec
 from repro_torch.core.cost_model import optimal_depth, pipeline_span
 from repro_torch.core.faults import (TornWriteError, UnrecoverableFaultError,
@@ -81,7 +82,7 @@ def flatten(reqs):
     # starts come from the lengths alone)
     used = torch.zeros(len(reqs), dtype=torch.int64, device=dev) \
         .index_add_(0, sender, lens).tolist()
-    data = torch.cat([r[2][:n] for r, n in zip(reqs, used)])
+    data = cat_views([r[2][:n] for r, n in zip(reqs, used)], dev)
     return offs, lens, sender, data
 
 
@@ -104,7 +105,7 @@ def merge_coalesce_groups(offs, lens, data, group, n_groups: int):
     order = torch.sort(offs, stable=True).indices
     order = order[torch.sort(group[order], stable=True).indices]
     s_off, s_len, s_grp = offs[order], lens[order], group[order]
-    packed = data[byte_index(exclusive_cumsum(lens)[order], s_len)]
+    packed = gather_spans(data, exclusive_cumsum(lens)[order], s_len)
     boundary = torch.ones_like(s_off, dtype=torch.bool)
     boundary[1:] = ((s_off[1:] != s_off[:-1] + s_len[:-1])
                     | (s_grp[1:] != s_grp[:-1]))
@@ -436,8 +437,8 @@ def execute_write(plan, machine, per_la, path: str, t,
         # charges, and its decode is what the GA receives (byte-identical
         # for the lossless codecs this path admits)
         order = torch.sort(inv, stable=True).indices
-        byte_idx = byte_index(exclusive_cumsum(lens)[order], lens[order])
-        raw_host = data[byte_idx].cpu().numpy()
+        m_start, m_len = exclusive_cumsum(lens)[order], lens[order]
+        raw_host = gather_spans(data, m_start, m_len).cpu().numpy()
         dec_host = np.empty_like(raw_host)
         pos = 0
         for i in range(n_msg):
@@ -449,7 +450,8 @@ def execute_write(plan, machine, per_la, path: str, t,
             wire[i] = w.size           # the wire moves encoded
             pos += n
         data = data.clone()
-        data[byte_idx] = torch.from_numpy(dec_host).to(data.device)
+        scatter_spans(data, m_start, m_len,
+                      torch.from_numpy(dec_host).to(data.device))
     msg_bytes = wire + m_req * PAIR_BYTES
     ga_msgs = np.zeros((stripe_count, n_rounds), np.int64)
     ga_bytes = np.zeros((stripe_count, n_rounds), np.int64)
@@ -855,6 +857,6 @@ def assemble_reads(windows: np.ndarray, s_win, s_wo, s_take, totals,
     ranks' outputs is one gather. Returns one uint8 tensor per rank."""
     win_t = torch.from_numpy(windows.reshape(-1)).to(device)
     take = torch.from_numpy(s_take).to(device)
-    src = byte_index(torch.from_numpy(s_win * cb + s_wo).to(device), take)
-    flat = win_t[src]
+    flat = gather_spans(win_t, torch.from_numpy(s_win * cb + s_wo).to(device),
+                        take)
     return list(torch.split(flat, [int(n) for n in totals]))

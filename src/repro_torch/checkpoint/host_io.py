@@ -41,7 +41,7 @@ from repro_torch._device import resolve_device
 from repro_torch.checkpoint import host_exec
 from repro_torch.checkpoint.host_exec import PAIR_BYTES
 from repro_torch.core import codec as codec_mod
-from repro_torch.core._tensor import to_host
+from repro_torch.core._tensor import cat_views, to_host
 from repro_torch.core.cost_model import (Machine, Workload, optimal_cb,
                                          optimal_read_cb, with_codec)
 from repro_torch.core.domains import FileLayout
@@ -513,10 +513,8 @@ class HostCollectiveIO:
         dev = self.device
         pays = [d for _, _, d in rank_requests]
         if pays and all(isinstance(d, torch.Tensor) for d in pays):
-            data = torch.cat([d.reshape(-1)[:n].to(dev)
-                              for d, n in zip(pays, used)]
-                             + [torch.zeros(0, dtype=torch.uint8,
-                                            device=dev)])
+            data = cat_views([d.reshape(-1)[:n].to(dev)
+                              for d, n in zip(pays, used)], dev)
         else:
             data = torch.from_numpy(np.concatenate(
                 [to_host(d, np.uint8).reshape(-1)[:n]

@@ -21,6 +21,12 @@ And one torch behaviour the reference does not have: on the CPU,
 ``scatter_`` of bfloat16 turns a NaN's bits into 0xffff. Scatters that
 must move payload bits unchanged scatter :func:`bits_of` the tensors.
 
+Payload streams reach gigabytes (a checkpoint of a model's state):
+:func:`gather_spans` gathers byte spans (and :func:`scatter_spans`
+writes them back) without an index the size of the stream, and
+:func:`cat_views` joins the consecutive splits of one stream without a
+copy.
+
 Every helper works on the LAST axis and treats leading axes as a batch.
 """
 from __future__ import annotations
@@ -124,3 +130,99 @@ def byte_index(starts: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return (starts.gather(0, req_of)
             + torch.arange(total, device=starts.device)
             - exclusive_cumsum(lengths).gather(0, req_of))
+
+
+SPAN_SLICE_MIN = 1 << 16      # a run at least this long copies as a slice
+SPAN_GATHER_CHUNK = 1 << 26   # bytes one byte-index gather takes at most
+
+
+def _span_pieces(starts: torch.Tensor, lengths: torch.Tensor):
+    """The spans ``(s, n)`` as pieces in order, each a key into the 1-D
+    stream (a slice, or an int64 index of at most
+    :data:`SPAN_GATHER_CHUNK` elements) and its length.
+
+    Spans that continue each other merge into runs. A run of at least
+    :data:`SPAN_SLICE_MIN` elements is a slice; the short runs between
+    them are indexed through :func:`byte_index`, a chunk at a time, so
+    the index never outgrows the chunk however large the stream is."""
+    starts, lengths = starts.to(torch.int64), lengths.to(torch.int64)
+    head = torch.ones(lengths.numel(), dtype=torch.bool,
+                      device=lengths.device)
+    head[1:] = starts[1:] != starts[:-1] + lengths[:-1]
+    run = torch.cumsum(head.to(torch.int64), 0) - 1
+    r_start = starts[head]
+    r_len = torch.zeros(r_start.numel(), dtype=torch.int64,
+                        device=lengths.device).index_add_(0, run, lengths)
+    h_start, h_len = r_start.cpu().numpy(), r_len.cpu().numpy()
+    if h_len.size == 1:
+        s, n = int(h_start[0]), int(h_len[0])
+        yield slice(s, s + n), n
+        return
+    long_runs = np.flatnonzero(h_len >= SPAN_SLICE_MIN)
+    lo = 0
+    for b in list(long_runs) + [h_len.size]:
+        # the short runs [lo, b), in chunks, then the long run b
+        ends = np.cumsum(h_len[lo:b])
+        cut = 0
+        while cut < b - lo:
+            base = int(ends[cut - 1]) if cut else 0
+            nxt = max(int(np.searchsorted(ends, base + SPAN_GATHER_CHUNK,
+                                          side="right")), cut + 1)
+            yield (byte_index(r_start[lo + cut:lo + nxt],
+                              r_len[lo + cut:lo + nxt]),
+                   int(ends[nxt - 1]) - base)
+            cut = nxt
+        if b < h_len.size:
+            s, n = int(h_start[b]), int(h_len[b])
+            yield slice(s, s + n), n
+        lo = b + 1
+
+
+def gather_spans(data: torch.Tensor, starts: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """``data[s : s + n]`` of every ``(s, n)``, concatenated in order
+    (1-D ``data``; int64 ``starts`` and ``lengths`` on its device),
+    through :func:`_span_pieces`: no index the size of ``data``. A
+    result that is one run is a view of ``data``."""
+    if lengths.numel() == 0:
+        return data[:0]
+    pieces = [data[key] for key, _ in _span_pieces(starts, lengths)]
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
+def scatter_spans(dst: torch.Tensor, starts: torch.Tensor,
+                  lengths: torch.Tensor, src: torch.Tensor) -> None:
+    """The inverse of :func:`gather_spans`, in place: ``dst[s : s + n]``
+    of every ``(s, n)`` takes the next ``n`` elements of ``src``, in
+    order, with no index the size of ``dst``."""
+    if lengths.numel() == 0:
+        return
+    pos = 0
+    for key, n in _span_pieces(starts, lengths):
+        dst[key] = src[pos:pos + n]
+        pos += n
+
+
+def cat_views(parts, device=None) -> torch.Tensor:
+    """``torch.cat(parts)`` of 1-D tensors of one type; where the parts
+    are consecutive pieces of one tensor's memory (the splits of one
+    stream) the result is a view of that memory and nothing is copied.
+    ``device`` places an empty result."""
+    parts = [p for p in parts if p.numel()]
+    if not parts:
+        return torch.zeros(0, dtype=torch.uint8, device=device)
+    first = parts[0]
+    item = first.element_size()
+    chained = all(
+        p.is_contiguous() and p.dtype == first.dtype
+        and p.device == first.device
+        and p.untyped_storage().data_ptr()
+        == first.untyped_storage().data_ptr()
+        for p in parts) and all(
+        a.data_ptr() + a.numel() * item == b.data_ptr()
+        for a, b in zip(parts, parts[1:]))
+    if not chained:
+        return torch.cat(parts)
+    total = sum(p.numel() for p in parts)
+    return torch.empty(0, dtype=first.dtype, device=first.device).set_(
+        first.untyped_storage(), first.storage_offset(), (total,))

@@ -14,6 +14,9 @@
   causal, window, softcap and kv_len masks, the serving path's
   attention (CUDA, three routes: ``tc_prefill`` and ``split_decode`` for
   bf16, ``scalar_f32``);
+* ``flash.flash_attention_bwd`` — its gradient (dq, dk, dv), the
+  training path's attention backward, behind the autograd function
+  ``flash.FlashAttention`` (CUDA, scalar f32, f32 and bf16);
 * ``ref`` — the plain PyTorch versions the wrappers run on the CPU;
 * ``ops`` — padding, chunking and RequestList integration;
 * ``build`` — the nvcc build and ctypes loading, at first launch.
@@ -25,7 +28,8 @@ them by route, in ``flash_attention_fused.launches_by_route``.
 from __future__ import annotations
 
 from repro_torch.kernels.coalesce_kernel import coalesce
-from repro_torch.kernels.flash import flash_attention_fused
+from repro_torch.kernels.flash import (flash_attention_bwd,
+                                      flash_attention_fused)
 from repro_torch.kernels.fused_round import (fused_sort_pack,
                                             zero_skip_decode,
                                             zero_skip_encode)
@@ -33,7 +37,8 @@ from repro_torch.kernels import pack as _pack_module   # keeps .pack a module
 from repro_torch.kernels.sort import bitonic_sort
 
 KERNELS = (bitonic_sort, coalesce, fused_sort_pack, zero_skip_encode,
-           zero_skip_decode, _pack_module.pack, flash_attention_fused)
+           zero_skip_decode, _pack_module.pack, flash_attention_fused,
+           flash_attention_bwd)
 
 
 def launch_counts() -> dict[str, int]:

@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sort.cu", "coalesce_kernel.cu", "fused_round.cu",
-           "zero_skip.cu", "pack.cu", "flash.cu", "flash_decode.cu")
+           "zero_skip.cu", "pack.cu", "flash.cu", "flash_decode.cu",
+           "flash_bwd.cu")
 HEADERS = ("common.cuh", "bitonic.cuh", "pack_tiles.cuh", "flash_tiles.cuh",
            "flash_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,6 +47,9 @@ _SIGNATURES = {
     "repro_pack": (_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _F, _I, _I, _F, _I, _I, _I, _I, _P),
+    "repro_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _I, _I, _I, _F, _I, _I, _F, _I, _I,
+                                  _I, _P),
 }
 
 

@@ -48,6 +48,16 @@ edges, so ``flash_attention_ragged`` is the same call on any Sq and Skv,
 and the model's decode reads its cache in place through it. On a CPU
 tensor both run the plain version,
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
+
+The gradient (:class:`FlashAttention`, an autograd function whose
+forward is the routed kernel above) comes from
+:func:`flash_attention_bwd` (``csrc/flash_bwd.cu``): the gradient of the
+model's attention, which the reference takes from XLA's autodiff (it
+has no Pallas backward). Three launches, no atomics: a pass that
+recomputes each row's max and sum and writes ``dout / l`` and
+``D = (dout / l) . out``, one CTA per 32 keys for dk and dv, one per 64
+rows for dq; scalar f32, both input types. CPU tensors run
+:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -56,7 +66,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 BLOCK_Q = 256
 BLOCK_KV = 512
@@ -192,3 +202,98 @@ def flash_attention_ragged(q: torch.Tensor, k: torch.Tensor,
 
 flash_attention_fused.launches = 0
 flash_attention_fused.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+# flash_attention_bwd: its grids' y limit (key blocks of 32, row blocks
+# of 64)
+BWD_KEYS_PER_CTA = 32
+BWD_ROWS_PER_CTA = 64
+BWD_MAX_GRID_Y = 65535
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        logit_cap: float | None = None, q_offset: int = 0,
+                        kv_len: int | None = None):
+    """The gradient of :func:`flash_attention_ragged` at ``(q, k, v)``
+    against ``dout``, given its output ``out``: ``(dq, dk, dv)`` in the
+    input type. CUDA tensors launch ``csrc/flash_bwd.cu`` (counted in
+    ``flash_attention_bwd.launches``, one a call) or raise; CPU tensors
+    run ``ref.flash_attention_bwd_ref``. Pairs a row cannot see get no
+    gradient, and neither does a row that sees no key."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if k.shape != (b, skv, hkv, hd) or v.shape != k.shape \
+            or out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} / out {tuple(out.shape)} / dout "
+                         f"{tuple(dout.shape)} mismatch")
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
+    kv_len = skv if kv_len is None else min(int(kv_len), skv)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal,
+                                       window=window, logit_cap=logit_cap,
+                                       q_offset=q_offset, kv_len=kv_len)
+    build.require_cuda("flash_attention_bwd", q, k, v, out, dout)
+    if any(t.dtype != q.dtype for t in (k, v, out, dout)) \
+            or q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention_bwd takes one type of {DTYPES}, "
+                        f"got {[t.dtype for t in (q, k, v, out, dout)]}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} not in [1, {MAX_HEAD_DIM}]")
+    if -(-sq * (hq // hkv) // BWD_ROWS_PER_CTA) > BWD_MAX_GRID_Y \
+            or -(-skv // BWD_KEYS_PER_CTA) > BWD_MAX_GRID_Y:
+        raise ValueError(f"{sq} x {hq // hkv} rows or {skv} keys exceed the "
+                         "backward kernel's grid")
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} must be >= 1 or None")
+    if logit_cap is not None and logit_cap <= 0:
+        raise ValueError(f"logit_cap {logit_cap} must be > 0 or None")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if b == 0 or hkv == 0 or hd == 0:
+        return dq, dk, dv
+    if sq == 0 or skv == 0:
+        return dq, dk.zero_(), dv.zero_()
+    dos = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    stats = torch.empty((b, sq, hq, 4), dtype=torch.float32, device=q.device)
+    lib = build.load_library()
+    with torch.cuda.device(q.device):
+        rc = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dos.data_ptr(), stats.data_ptr(), b, sq, skv, hq, hkv, hd,
+            1.0 / math.sqrt(hd), int(causal),
+            0 if window is None else int(window),
+            0.0 if logit_cap is None else float(logit_cap), int(q_offset),
+            kv_len, int(q.dtype == torch.bfloat16), build.stream_of(q))
+    build.check(lib, "flash_attention_bwd", rc)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: the forward is
+    :func:`flash_attention_ragged` (the routed kernel on the card, the
+    plain version on the CPU), the backward :func:`flash_attention_bwd`
+    (the backward kernel on the card, the plain backward on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_cap, q_offset, kv_len):
+        out = flash_attention_ragged(q, k, v, causal=causal, window=window,
+                                     logit_cap=logit_cap, q_offset=q_offset,
+                                     kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kw = dict(causal=causal, window=window, logit_cap=logit_cap,
+                      q_offset=q_offset, kv_len=kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None

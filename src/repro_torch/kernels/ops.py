@@ -241,7 +241,14 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash.flash_attention_ragged`` on the tensors as they are (a decode
     step reads its cache in place) and bounds the real keys with
     ``kv_len`` (``Skv``, or the caller's smaller valid prefix, as in a
-    decode cache)."""
+    decode cache). Where autograd records and an input requires grad,
+    the call goes through ``flash.FlashAttention``, whose backward is
+    the backward kernel."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash.FlashAttention.apply(q, k, v, causal, window, logit_cap,
+                                          q_offset, kv_len)
     return flash.flash_attention_ragged(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-        window=window, logit_cap=logit_cap, q_offset=q_offset, kv_len=kv_len)
+        q, k, v, causal=causal, window=window, logit_cap=logit_cap,
+        q_offset=q_offset, kv_len=kv_len)

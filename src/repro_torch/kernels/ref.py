@@ -529,6 +529,30 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, hq, hd).to(q.dtype)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            dout: torch.Tensor, *, causal: bool,
+                            window: int | None, logit_cap: float | None,
+                            q_offset: int, kv_len: int | None = None):
+    """The plain backward of attention, and of the
+    ``flash.flash_attention_bwd`` kernel: the autograd gradient of
+    :func:`flash_attention_ref` at ``(q, k, v)`` against ``dout``, as
+    ``(dq, dk, dv)`` in the inputs' types. ``out`` (the forward's
+    output) is what the kernel takes; the plain version recomputes it.
+    Autograd rounds to bf16 what the forward rounds: each element of
+    dP = dout . bf16(v) and each key's dv."""
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} / dout "
+                         f"{tuple(dout.shape)} must be shaped like q "
+                         f"{tuple(q.shape)}")
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = flash_attention_ref(*leaves, causal=causal, window=window,
+                                logit_cap=logit_cap, q_offset=q_offset,
+                                kv_len=kv_len)
+        return torch.autograd.grad(o, leaves, dout.to(o.dtype))
+
+
 def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool,
                               window: int | None, logit_cap: float | None,

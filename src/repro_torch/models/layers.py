@@ -7,8 +7,10 @@ reference threads a ``ShardingPlan`` through every layer; on one device
 its ``constrain`` is the identity and its sharded decode
 (``decode_attention_sharded``) does not apply, so the port has neither.
 Attention on a CUDA tensor runs the Hopper kernel through
-``kernels.ops.fused_attention``; on a CPU tensor it runs the plain
-version, ``kernels.ref.flash_attention_ref``. The dense matrix products
+``kernels.ops.fused_attention`` (and, where an input requires grad, its
+backward kernel in the backward pass); on a CPU tensor it runs the plain
+version, ``kernels.ref.flash_attention_ref``, which autograd
+differentiates. The dense matrix products
 are ``torch.einsum`` calls, as the reference leaves them to XLA.
 """
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Decoder-only dense LM: parameters, forward, prefill and decode (the
-port of the dense family of the reference's ``models/transformer.py``).
+"""Decoder-only dense LM: parameters, forward, loss, prefill and decode
+(the port of the dense family of the reference's
+``models/transformer.py``).
 
 Layer stacking follows the reference: layers are grouped into
 super-blocks of ``cfg.block_period`` layers (gemma2's local/global
@@ -7,7 +8,9 @@ alternation gives 2), and each position-in-period ("slot") holds its
 parameters stacked on a leading ``n_blocks`` axis. The reference scans
 over blocks with ``lax.scan``; the port runs a Python loop over them,
 indexing the stacked tensors (views, no copies). Decode writes the
-stacked KV caches in place, one position per step.
+stacked KV caches in place, one position per step. ``loss_fn`` is the
+training objective; its gradient comes from autograd, the attention's
+from the backward kernel on the card (``kernels.flash.FlashAttention``).
 
 Only the ``dense`` family is ported; moe, ssm, hybrid, audio (enc-dec)
 and vlm raise ``NotImplementedError`` (ROADMAP queue 1, item 11).
@@ -18,6 +21,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import layers as L
@@ -115,17 +119,33 @@ def _apply_layer(pl_, x, cfg, i_in_period, positions, cache=None,
     return x + L.mlp(pl_["mlp"], h2), new_cache
 
 
+def _super_block(slots, bi: int, x, cfg, positions):
+    """The layers of super-block ``bi`` (no caches)."""
+    for j in range(len(slots)):
+        x, _ = _apply_layer(_block_params(slots[j], bi), x, cfg, j, positions)
+    return x
+
+
 def _run_blocks(blocks, x, cfg, positions,
                 decode_state: DecodeState | None = None,
-                collect_caches: bool = False):
+                collect_caches: bool = False, remat: bool = False):
     """Loop over super-blocks. Returns (x, new_decode_state).
 
     With ``decode_state`` each layer writes its slice of the stacked
     caches in place; with ``collect_caches`` the prefill's keys and
-    values are written into newly allocated stacked caches."""
+    values are written into newly allocated stacked caches. ``remat``
+    (training, no caches) recomputes each super-block in the backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+    of its scanned block."""
     slots = blocks["slots"]
     period = len(slots)
     n_blocks = slots[0]["ln1"].shape[0]
+    if remat and decode_state is None and not collect_caches:
+        for bi in range(n_blocks):
+            x = torch.utils.checkpoint.checkpoint(
+                _super_block, slots, bi, x, cfg, positions,
+                use_reentrant=False)
+        return x, None
     caches = [None] * period
     if decode_state is not None:
         caches = decode_state.kv
@@ -170,15 +190,32 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                      cfg.final_logit_softcap)
 
 
-def forward(params, cfg: ModelConfig, batch: dict):
+def forward(params, cfg: ModelConfig, batch: dict, remat: bool = False):
     """Full-sequence forward -> (logits [B, S, V], aux loss). A dense LM
     has no aux loss: it is 0."""
     require_dense(cfg)
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
-    x, _ = _run_blocks(params["blocks"], x, cfg, _positions(b, s, x.device))
+    x, _ = _run_blocks(params["blocks"], x, cfg, _positions(b, s, x.device),
+                       remat=remat)
     return (_logits(params, cfg, x),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = False):
+    """Causal LM cross-entropy (mean over tokens) + 0.01 x the aux loss,
+    as the reference: the padded vocab columns masked out of the
+    partition function, logsumexp and the label's logit in f32."""
+    logits, aux = forward(params, cfg, batch, remat=remat)
+    labels = batch["labels"]
+    if cfg.padded_vocab != cfg.vocab:
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(col < cfg.vocab, logits, -1e30)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    nll = (lse - ll).mean()
+    return nll + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Elastic re-meshing after node loss (port of the planning half of
+"""Elastic re-meshing after node loss, and restart discovery (port of
 ``repro.runtime.elastic``).
 
 Policy: keep the model axis intact (TP/EP shards are load-bearing —
@@ -9,11 +9,22 @@ a host writer through :func:`plan_remesh`.
 
 The port has no device mesh (every rank is a row of one tensor on one
 card), so :class:`ElasticPlan` carries the shape only.
+
+Restart discovery (:func:`find_restart_step`) is the other half of a
+kill-and-resume: it trusts only COMMITTED checkpoints. The save path
+writes the manifest last (``checkpoint._commit_write``), so a process
+killed mid-drain leaves segment files with no manifest — invisible
+here — and a drain torn mid-segment leaves ``.partial`` markers
+(``core.faults.partial_marker``) that disqualify the step.
 """
 from __future__ import annotations
 
+import json
 import warnings
 from dataclasses import dataclass
+from pathlib import Path
+
+from repro_torch.core.faults import partial_marker
 
 
 @dataclass(frozen=True)
@@ -58,3 +69,43 @@ def plan_remesh(total_devices: int, model_parallel: int,
                            ("pod", "data", "model"), accum, unused)
     return ElasticPlan((data, model_parallel), ("data", "model"), accum,
                        unused)
+
+
+def find_restart_step(directory: str | Path) -> int | None:
+    """The newest step a restart may restore: the highest committed
+    manifest whose segments are intact. Skips (never raises on):
+
+    * orphan ``.seg*`` files with no manifest — a drain killed before
+      its commit point;
+    * a step with a ``.partial`` marker on any segment — a drain torn
+      mid-segment;
+    * a non-empty checkpoint with no segment files at all — a manifest
+      that outlived its segments;
+    * a non-empty checkpoint whose segment files are ALL zero-length —
+      created-but-never-written segments;
+    * a manifest that does not parse.
+
+    Returns ``None`` when no restorable checkpoint exists.
+    """
+    d = Path(directory)
+    for mpath in sorted(d.glob("ckpt_*.manifest.json"), reverse=True):
+        stem = mpath.name.replace(".manifest.json", "")
+        segs = [p for p in d.glob(stem + ".seg*")
+                if not p.name.endswith(".partial")]
+        if any(Path(partial_marker(str(p))).exists() for p in segs):
+            continue
+        if any(p.name.endswith(".partial") for p in d.glob(stem + ".seg*")):
+            continue
+        try:
+            manifest = json.loads(mpath.read_text())
+        except (ValueError, OSError):
+            continue
+        if manifest.get("file_len", 0) > 0:
+            try:
+                sizes = [p.stat().st_size for p in segs]
+            except OSError:
+                continue       # a segment vanished under us: not this one
+            if not segs or all(sz == 0 for sz in sizes):
+                continue
+        return int(manifest["step"])
+    return None

@@ -940,3 +940,185 @@ def test_cuda_ops_coalesce_of_rows_longer_than_one_block(cuda, case, rows,
     assert t_ck.coalesce.launches > before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------- backward
+
+def _grad_check(got, want):
+    """The backward kernel against ``flash_attention_bwd_ref`` given the
+    same forward output (``chip_smoke.BWD_TOL``): every element within
+    rtol 1.6e-2 (dv and each dP are rounded to bf16, and a sum in another
+    order may round to a neighbour, two ulps across a power of two) plus
+    atol 2e-3 x max|want| (f32: a dP rounded the other way under a
+    probability near 1) or 1e-2 x max|want| (bf16 outputs); and a
+    relative L2 distance of at most 1e-4 (f32) or 1e-2 (bf16), which is
+    what a wrong gradient fails. Returns ``(ok, rel_l2)``."""
+    g, w = got.float(), want.float()
+    f32 = want.dtype == torch.float32
+    rtol, atol, l2 = (1.6e-2, 2e-3, 1e-4) if f32 else (1.6e-2, 1e-2, 1e-2)
+    scale = float(w.abs().max())
+    elem = bool(((g - w).abs() <= rtol * w.abs() + atol * scale).all())
+    rel = float((g - w).norm() / w.norm().clamp(min=1e-30))
+    return elem and rel <= l2, rel
+
+
+# (b, sq, skv, hq, hkv, hd, causal, window, cap, q_offset, kv_len).
+# Every row sees a key: a row that sees none gets no gradient from the
+# kernel (its forward gives it a zero output), while the plain version
+# spreads it over the masked keys of its chunk.
+BWD_CASES = [
+    (1, 256, 256, 4, 2, 64, True, None, 50.0, 0, None),       # GQA + cap
+    (2, 100, 300, 8, 2, 37, True, 40, 30.0, 200, 290),        # ragged
+    (1, 64, 64, 4, 4, 16, False, None, None, 0, None),        # MHA
+    (1, 130, 130, 6, 3, 256, True, 17, 50.0, 0, None),        # window
+    (3, 5, 700, 16, 8, 100, False, None, 50.0, 650, 651),     # decode-like
+    (1, 96, 5000, 4, 2, 32, True, None, None, 4904, None),    # > 1 chunk
+    (1, 33, 33, 7, 1, 128, True, None, None, 0, None),        # g = 7
+]
+# rows of more than one 4096-key chunk: the plain version takes the row
+# max and rounds p to bf16 a chunk at a time, the kernel once a row
+# (f32; bf16 keeps its 1e-2)
+BWD_MULTI_CHUNK_REL_L2 = 2e-3
+
+
+def _bwd_inputs(cuda, case, dtype, seed=1):
+    b, sq, skv, hq, hkv, hd, causal, window, cap, q_offset, kv_len = case
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    # logits of a few units (q, k of std 2), so the softcap bends them
+    q, k = ((2 * torch.randn(s, generator=gen, device=cuda)).to(dtype)
+            for s in ((b, sq, hq, hd), (b, skv, hkv, hd)))
+    v = torch.randn((b, skv, hkv, hd), generator=gen, device=cuda).to(dtype)
+    dout = torch.randn((b, sq, hq, hd), generator=gen, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, logit_cap=cap,
+              q_offset=q_offset, kv_len=kv_len)
+    return q, k, v, dout, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_cuda_flash_bwd_equals_plain(cuda, dtype, case):
+    """dq, dk, dv from ``csrc/flash_bwd.cu`` against the autograd
+    gradient of the plain attention (``_grad_check``), one launch."""
+    from repro_torch.kernels import flash as t_flash
+    q, k, v, dout, kw = _bwd_inputs(cuda, case, dtype)
+    out = t_ref.flash_attention_ref(q, k, v, **kw)
+    before = t_flash.flash_attention_bwd.launches
+    got = t_flash.flash_attention_bwd(q, k, v, out, dout, **kw)
+    assert t_flash.flash_attention_bwd.launches == before + 1
+    want = t_ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        ok, rel = _grad_check(g, w)
+        if case[2] > t_ref.ATTENTION_CHUNK:   # the L2 limit only
+            ok = rel <= (BWD_MULTI_CHUNK_REL_L2 if dtype == torch.float32
+                         else 1e-2)
+        assert ok, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_bwd_repeats_bit_equal(cuda, dtype):
+    """No atomics: the same inputs give the same bits."""
+    from repro_torch.kernels import flash as t_flash
+    q, k, v, dout, kw = _bwd_inputs(cuda, BWD_CASES[1], dtype)
+    out = t_ref.flash_attention_ref(q, k, v, **kw)
+    a = t_flash.flash_attention_bwd(q, k, v, out, dout, **kw)
+    b = t_flash.flash_attention_bwd(q, k, v, out, dout, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_planted_faults_fail_the_check(cuda):
+    """Gradients made wrong on purpose fail ``_grad_check``: the kernel
+    with the window one key short, the kernel with the D term dropped
+    (``out`` zeroed: D = dO' . out), and the plain backward with the
+    softcap's derivative dropped (a straight-through tanh)."""
+    from unittest import mock
+    from repro_torch.kernels import flash as t_flash
+    case = BWD_CASES[3]
+    q, k, v, dout, kw = _bwd_inputs(cuda, case, torch.float32)
+    out = t_ref.flash_attention_ref(q, k, v, **kw)
+    want = t_ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    tanh = torch.tanh
+    with mock.patch.object(torch, "tanh",
+                           lambda x: x + (tanh(x) - x).detach()):
+        no_dcap = t_ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    faults = {
+        "window_short": t_flash.flash_attention_bwd(
+            q, k, v, out, dout, **{**kw, "window": kw["window"] - 1}),
+        "d_dropped": t_flash.flash_attention_bwd(
+            q, k, v, torch.zeros_like(out), dout, **kw),
+        "softcap_derivative_dropped": no_dcap}
+    for name, got in faults.items():
+        assert not all(_grad_check(g, w)[0] for g, w in zip(got, want)), name
+
+
+@pytest.mark.cuda
+def test_cuda_attention_gradient_goes_through_the_kernel(cuda, monkeypatch):
+    """``layers.flash_attention`` on CUDA tensors that require grad
+    returns an output with a grad_fn whose backward launches the kernel,
+    with every plain attention made to raise."""
+    from repro_torch.kernels import flash as t_flash
+    from repro_torch.models import layers as t_layers
+    q, k, v, dout, kw = _bwd_inputs(cuda, BWD_CASES[0], torch.float32)
+    want = t_ref.flash_attention_bwd_ref(
+        q, k, v, t_ref.flash_attention_ref(q, k, v, **kw), dout, **kw)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain attention ran on the card")
+    for mod in (t_ref, t_flash, t_layers.ref):
+        for name in ("flash_attention_ref", "flash_attention_bwd_ref"):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, refuse)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fwd = t_flash.flash_attention_fused.launches
+    bwd = t_flash.flash_attention_bwd.launches
+    out = t_layers.flash_attention(*leaves, **kw)
+    assert out.grad_fn is not None
+    out.backward(dout)
+    assert t_flash.flash_attention_fused.launches == fwd + 1
+    assert t_flash.flash_attention_bwd.launches == bwd + 1
+    # the kernel forward's output feeds D: the f32 limit of the check
+    # with the plain forward's output does not apply, the bf16 one does
+    for x, w in zip(leaves, want):
+        g, ww = x.grad.float(), w.float()
+        assert float((g - ww).norm() / ww.norm()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("async_checkpoint", [False, True])
+def test_cuda_train_loop_saves_and_restores_byte_for_byte(cuda, tmp_path,
+                                                          async_checkpoint,
+                                                          monkeypatch):
+    """Two steps of reduced gemma2 on the card with a checkpoint after
+    each (sync or async): the losses are finite, the attention ran its
+    kernels both ways, ``pack`` built the images, and the last
+    checkpoint restores to the final state byte for byte."""
+    from repro_torch import kernels
+    from repro_torch._tree import leaves
+    from repro_torch.kernels import flash as t_flash
+    from repro_torch.launch.train import build_training
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain backward ran on the card")
+    monkeypatch.setattr(t_flash, "flash_attention_bwd_ref", refuse)
+    run = build_training("gemma2_9b", smoke=True, steps=2, batch=2, seq=32,
+                         ckpt_dir=str(tmp_path), ckpt_every=1, log_every=1,
+                         async_checkpoint=async_checkpoint, device=cuda)
+    kernels.reset_launch_counts()
+    loop = run.loop()
+    params, opt_state, step = loop.run(run.params, run.opt_state)
+    counts = kernels.launch_counts()
+    assert step == 2 and all(np.isfinite(loop.losses))
+    assert counts["flash_attention_fused"] > 0
+    assert counts["flash_attention_bwd"] > 0 and counts["pack"] > 0
+    got, got_step = run.ckpt.restore({"params": params, "opt": opt_state})
+    assert got_step == 2
+    for a, b in zip(leaves(got), leaves({"params": params,
+                                         "opt": opt_state})):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))

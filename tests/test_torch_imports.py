@@ -30,8 +30,9 @@ PORT_FILES = sorted(PORT.rglob("*.py"))
 def test_port_has_python_and_cuda_sources():
     assert len(PORT_FILES) > 15
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
-        == ["coalesce_kernel.cu", "flash.cu", "flash_decode.cu",
-            "fused_round.cu", "pack.cu", "sort.cu", "zero_skip.cu"]
+        == ["coalesce_kernel.cu", "flash.cu", "flash_bwd.cu",
+            "flash_decode.cu", "fused_round.cu", "pack.cu", "sort.cu",
+            "zero_skip.cu"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -50,7 +51,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.checkpoint.host_io, repro_torch.checkpoint.mp_exec, "
             "repro_torch.core.session, repro_torch.core.faults, "
             "repro_torch.core.transport, repro_torch.runtime.elastic, "
-            "repro_torch.runtime.heartbeat; "
+            "repro_torch.runtime.heartbeat, repro_torch.runtime.trainer, "
+            "repro_torch.checkpoint.checkpoint, repro_torch.optim, "
+            "repro_torch.data, repro_torch.launch.train, "
+            "repro_torch.launch.steps, repro_torch.launch.shapes; "
             "[repro_torch.configs.get(a) for a in repro_torch.configs.ARCHS]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
@@ -72,6 +76,8 @@ def _entry_points():
     from repro_torch.models import transformer as T
     from repro_torch.models.config import reduced
     from repro_torch.models.weights import params_from_numpy
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.train import build_training
     cfg_lm = reduced(configs.get("gemma2_9b"))
     mesh = RankMesh(2, 1, 2)
     layout = contiguous_layout(64, 2)
@@ -95,6 +101,10 @@ def _entry_points():
             {"w": np.zeros(2, np.float32)}, **kw),
         "host_collective_io": lambda **kw: HostCollectiveIO(
             n_ranks=4, n_nodes=2, stripe_size=64, stripe_count=2, **kw),
+        "token_pipeline": lambda **kw: SyntheticTokenPipeline(
+            DataConfig(vocab=64, seq=4, global_batch=1), **kw),
+        "build_training": lambda **kw: build_training(
+            "gemma2_9b", smoke=True, steps=1, batch=1, seq=4, **kw),
     }
 
 

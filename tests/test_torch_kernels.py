@@ -510,10 +510,11 @@ def test_cpu_path_launches_nothing():
     t_pack.pack(x[0], x[0], x[0], x[0], 0, 4096)
     q = torch.zeros((1, 64, 2, 16))
     t_flash.flash_attention_fused(q, q, q, block_q=64, block_kv=64)
+    t_flash.flash_attention_bwd(q, q, q, q, q)
     assert t_kernels.launch_counts() == {
         "bitonic_sort": 0, "coalesce": 0, "fused_sort_pack": 0,
         "zero_skip_encode": 0, "zero_skip_decode": 0, "pack": 0,
-        "flash_attention_fused": 0}
+        "flash_attention_fused": 0, "flash_attention_bwd": 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path():
@@ -529,6 +530,8 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
                      *(torch.zeros((1, 64, 2, 16), device="meta"),) * 3,
                      block_q=64, block_kv=64),
                  lambda: t_flash.flash_attention_ragged(
-                     *(torch.zeros((1, 5, 2, 16), device="meta"),) * 3)):
+                     *(torch.zeros((1, 5, 2, 16), device="meta"),) * 3),
+                 lambda: t_flash.flash_attention_bwd(
+                     *(torch.zeros((1, 5, 2, 16), device="meta"),) * 5)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
