@@ -49,7 +49,8 @@ bfloat16 and uint8 payloads), then drives the main paths:
 * training with checkpoint and restart (``phase_train``): the attention
   backward kernel (``csrc/flash_bwd.cu``) held against the autograd
   gradient of the plain attention at the training shapes, f32 and bf16,
-  with planted faults that must fail and bit-equal repeats; then
+  with planted faults that must fail and bit-equal repeats, timed pass
+  by pass, with SDPA's backward beside it as a yardstick; then
   gemma2-9b at full width cut to 2 layers, f32 parameters, batch 1 x
   4096 tokens, through ``launch.train.build_training``: 4 uninterrupted
   steps, and a run that saves a TAM checkpoint at step 2 (``pack``
@@ -1897,8 +1898,22 @@ BWD_TOL = {"float32": {"rtol": 1.6e-2, "atol": 2e-3, "rel_l2": 1e-4},
 BWD_CASES = (("global", "float32", None), ("window_4096", "float32", 4096),
              ("window_1024", "float32", 1024),
              ("global_bf16", "bfloat16", None))
-BWD_LIBRARY = ("none: SDPA's and flex_attention's backward keep p.v and "
-               "dP in f32, the model's attention rounds them to bf16")
+BWD_LIBRARY = ("yardstick, not the same function: the backward of "
+               "torch.nn.functional.scaled_dot_product_attention in f32 "
+               "(its backend's choice), causal, no softcap, k and v "
+               "expanded to 16 heads, by torch.autograd.grad of a forward "
+               "taken before the timer (SDPA's and flex_attention's "
+               "backward keep p.v and dP in f32, the model's attention "
+               "rounds them to bf16)")
+# the backward's three launches, by their bit of the pass mask
+# (flash._launch_bwd), and the products of hd a visible pair it computes
+# at these shapes, where it keeps the logits' q . k from the stats pass
+# (flash.BWD_DOTS_MAX_BYTES): TF32 mma (the split's terms: dq pass dP 2,
+# dq 3; dk/dv pass dP 2, dk 3; bf16 inputs: dq and dk 2, dv 2, and the
+# logits 1) and f32 FMA chains (f32 inputs: the logits once, and dv)
+BWD_PASSES = {"stats": 1, "dq": 2, "dkdv": 4}
+BWD_PRODUCTS = {"float32": {"tf32": 10, "fma": 2},
+                "bfloat16": {"tf32": 11, "fma": 0}}
 
 
 def bwd_err(got, want, dname) -> dict:
@@ -1943,6 +1958,41 @@ def bwd_bound(torch, q_shape, k_shape, itemsize, causal, window):
             else "bytes", pairs, ops / FP32_OPS_PER_S * 1e3)
 
 
+def bwd_pass_ms(torch, q, k, v, out, dout, kw, reps, flush) -> dict:
+    """Device time (ms) of each of the backward's passes: a full call
+    fills the scratch, then each pass alone (``flash._launch_bwd`` with
+    one bit of the mask; not a launch of the path) is timed by CUDA
+    events (``time_ms``)."""
+    from repro_torch.kernels import flash
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    scratch = flash.bwd_scratch(q, k.shape[1])
+    kw = {**kw, "kv_len": k.shape[1] if kw["kv_len"] is None
+          else min(kw["kv_len"], k.shape[1])}
+
+    def run(passes):
+        flash._launch_bwd(q, k, v, out, dout, grads, scratch, kw, passes)
+    run(flash.BWD_ALL_PASSES)
+    return {name: time_ms(torch, lambda m=mask: run(m), reps, flush)
+            for name, mask in BWD_PASSES.items()}
+
+
+def sdpa_bwd_ms(torch, q, k, v, dout, reps, flush) -> float:
+    """The yardstick of ``BWD_LIBRARY``: SDPA's backward at the case's
+    shapes in f32, causal, no softcap, k and v expanded to q's heads."""
+    import torch.nn.functional as F
+    g = q.shape[2] // k.shape[2]
+    leaves = [x.float().repeat_interleave(r, dim=2).transpose(1, 2)
+              .contiguous().requires_grad_(True)
+              for x, r in ((q, 1), (k, g), (v, g))]
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    d = dout.float().transpose(1, 2).contiguous()
+    ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, d, retain_graph=True), reps, flush)
+    del out, leaves, d
+    return ms
+
+
 def phase_train_kernel(torch, dev, reps):
     """``flash_attention_bwd`` against ``flash_attention_bwd_ref`` at the
     training path's shapes (``BWD_CASES``; q and k of std 2, so the
@@ -1952,8 +2002,11 @@ def phase_train_kernel(torch, dev, reps):
     derivative dropped (the plain backward through a straight-through
     tanh), the window one key short (the kernel at ``window - 1``, where
     the window masks keys) and the D term dropped (the kernel given a
-    zero ``out``: D = dO' . out). Returns the global f32 case's line with
-    the others beside it."""
+    zero ``out``: D = dO' . out). Each case's line also gives the device
+    time of each pass (``bwd_pass_ms``) and the TFLOP/s achieved on the
+    bound's five products and on the TF32 products the split issues; the
+    global f32 case times SDPA's backward beside it (``BWD_LIBRARY``).
+    Returns the global f32 case's line with the others beside it."""
     from unittest import mock
     from repro_torch.kernels import flash, ref
     gen = torch.Generator(device=dev)
@@ -1997,6 +2050,9 @@ def phase_train_kernel(torch, dev, reps):
         del got, want
         bound_ms, bound_by, pairs, f32_ms = bwd_bound(
             torch, q.shape, k.shape, q.element_size(), True, window)
+
+        def kernel():
+            return flash.flash_attention_bwd(q, k, v, out, dout, **kw)
         rec = {"case": name, "dtype": dname, "q": list(q.shape),
                "kv": list(k.shape), "causal": True, "window": window,
                "logit_cap": 50.0, "max_abs_err": check["max_abs_err"],
@@ -2007,14 +2063,20 @@ def phase_train_kernel(torch, dev, reps):
                                       for n in c["per_grad"]}
                                   for f, c in planted.items()},
                "pairs": pairs,
-               "ms": time_ms(torch, lambda: flash.flash_attention_bwd(
-                   q, k, v, out, dout, **kw), reps, flush),
+               "ms": time_ms(torch, kernel, reps, flush),
+               "passes_ms": bwd_pass_ms(torch, q, k, v, out, dout, kw, reps,
+                                        flush),
                "plain_ms": time_ms(torch, lambda: ref.flash_attention_bwd_ref(
                    q, k, v, out, dout, **kw), 2, flush),
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "f32_cores_bound_ms": f32_ms, "library_ms": None,
-               "library": BWD_LIBRARY}
+               "f32_cores_bound_ms": f32_ms,
+               "library_ms": (sdpa_bwd_ms(torch, q, k, v, dout, reps, flush)
+                              if name == "global" else None),
+               "library": BWD_LIBRARY if name == "global" else None,
+               "products_issued": BWD_PRODUCTS[dname]}
         rec["achieved_tflops"] = 10 * hd * pairs / rec["ms"] / 1e9
+        rec["issued_tflops"] = (2 * sum(BWD_PRODUCTS[dname].values()) * hd
+                                * pairs / rec["ms"] / 1e9)
         emit({"phase": "kernel", "kernel": "flash_attention_bwd", **rec})
         require(check["within"], f"bwd {name}: {check}")
         require(bit_equal, f"bwd {name}: two runs differ")
@@ -2027,7 +2089,8 @@ def phase_train_kernel(torch, dev, reps):
     del flush
     main = recs["global"]
     return {**main, "other_cases": {n: {k: r[k] for k in (
-        "dtype", "window", "ms", "bound_ms", "plain_ms", "max_abs_err")}
+        "dtype", "window", "ms", "passes_ms", "bound_ms", "plain_ms",
+        "max_abs_err", "achieved_tflops", "issued_tflops")}
         for n, r in recs.items() if n != "global"}}
 
 
@@ -2380,7 +2443,8 @@ def main() -> int:
     ptxas = []
     for log in sorted(build.build_dir().glob("*.log")):
         ptxas += [ln.strip() for ln in log.read_text().splitlines()
-                  if "registers" in ln or "Compiling entry" in ln]
+                  if "registers" in ln or "Compiling entry" in ln
+                  or "spill" in ln]
     emit({"phase": "build", "seconds": build_s, "library": lib_path.name,
           "ptxas": ptxas})
     smi = subprocess.run(
@@ -2435,6 +2499,9 @@ def main() -> int:
     extra["flash_attention_bwd"] = {
         "path": "training (phase_train): every backward of every layer",
         "case": bwd_rec["case"], "other_cases": bwd_rec["other_cases"],
+        "passes_ms": bwd_rec["passes_ms"],
+        "achieved_tflops": bwd_rec["achieved_tflops"],
+        "issued_tflops": bwd_rec["issued_tflops"],
         "f32_cores_bound_ms": bwd_rec["f32_cores_bound_ms"],
         "library": bwd_rec["library"]}
 

@@ -54,10 +54,19 @@ forward is the routed kernel above) comes from
 :func:`flash_attention_bwd` (``csrc/flash_bwd.cu``): the gradient of the
 model's attention, which the reference takes from XLA's autodiff (it
 has no Pallas backward). Three launches, no atomics: a pass that
-recomputes each row's max and sum and writes ``dout / l`` and
-``D = (dout / l) . out``, one CTA per 32 keys for dk and dv, one per 64
-rows for dq; scalar f32, both input types. CPU tensors run
-:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.
+computes each row's max, then its sum l of exp(x - max) (in f64,
+rounded once), and writes ``dout / l`` and ``D = (dout / l) . out``
+(and, up to ``BWD_DOTS_MAX_BYTES``, each pair's q . k for the other
+passes, which recompute it past that), one CTA per 64 rows for dq, one
+per 64 keys for dk and dv (rows streamed 32 at a time). dP, dk and dq
+run on the tensor cores (``mma.sync`` TF32, each f32 operand split into
+two TF32 halves); for f32 inputs the logits and dv are f32 FMA chains
+in the plain version's order, which the f32 check needs (the gradient
+rounds bf16(p~) and dP, so the logits must keep the plain version's
+bits); for bf16 inputs every product is on the tensor cores. A model of
+its arithmetic is
+:func:`repro_torch.kernels.ref.flash_attention_bwd_split_ref`. CPU
+tensors run :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -203,9 +212,9 @@ def flash_attention_ragged(q: torch.Tensor, k: torch.Tensor,
 flash_attention_fused.launches = 0
 flash_attention_fused.launches_by_route = dict.fromkeys(ROUTES, 0)
 
-# flash_attention_bwd: its grids' y limit (key blocks of 32, row blocks
-# of 64)
-BWD_KEYS_PER_CTA = 32
+# flash_attention_bwd: keys a dk/dv CTA, rows a stats or dq CTA, and
+# the grids' y limit
+BWD_KEYS_PER_CTA = 64
 BWD_ROWS_PER_CTA = 64
 BWD_MAX_GRID_Y = 65535
 
@@ -255,24 +264,59 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     if sq == 0 or skv == 0:
         return dq, dk.zero_(), dv.zero_()
-    dos = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    stats = torch.empty((b, sq, hq, 4), dtype=torch.float32, device=q.device)
-    lib = build.load_library()
-    with torch.cuda.device(q.device):
-        rc = lib.repro_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dos.data_ptr(), stats.data_ptr(), b, sq, skv, hq, hkv, hd,
-            1.0 / math.sqrt(hd), int(causal),
-            0 if window is None else int(window),
-            0.0 if logit_cap is None else float(logit_cap), int(q_offset),
-            kv_len, int(q.dtype == torch.bfloat16), build.stream_of(q))
-    build.check(lib, "flash_attention_bwd", rc)
+    scratch = bwd_scratch(q, skv)
+    _launch_bwd(q, k, v, out, dout, (dq, dk, dv), scratch,
+                dict(causal=causal, window=window, logit_cap=logit_cap,
+                     q_offset=q_offset, kv_len=kv_len), BWD_ALL_PASSES)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+
+# the backward's launches as a mask: 1 stats, 2 dq, 4 dk/dv
+BWD_ALL_PASSES = 7
+# the backward keeps the logits' q . k (f32, one word a row and key,
+# keys rounded up to the stats pass's tile of BWD_DOTS_KEYS) from its
+# stats pass for the other two where that takes at most this many
+# bytes; past it each pass recomputes them
+BWD_DOTS_MAX_BYTES = 1 << 32
+BWD_DOTS_KEYS = 64
+
+
+def bwd_scratch(q: torch.Tensor, skv: int):
+    """The backward's f32 scratch for ``q``'s shape against ``skv`` keys:
+    dO' (q's layout), four words a row (m, D, dm, argmax), and the kept
+    q . k (``[b, hkv, sq * g, keys rounded up to BWD_DOTS_KEYS]``) or
+    None past ``BWD_DOTS_MAX_BYTES``."""
+    b, sq, hq, _ = q.shape
+    n_dots = b * hq * sq * (-(-skv // BWD_DOTS_KEYS) * BWD_DOTS_KEYS)
+    return (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+            torch.empty((b, sq, hq, 4), dtype=torch.float32,
+                        device=q.device),
+            torch.empty(n_dots, dtype=torch.float32, device=q.device)
+            if 4 * n_dots <= BWD_DOTS_MAX_BYTES else None)
+
+
+def _launch_bwd(q, k, v, out, dout, grads, scratch, kw, passes) -> None:
+    """``csrc/flash_bwd.cu`` on checked CUDA tensors: the launches of
+    ``passes`` (``BWD_ALL_PASSES`` for the gradient; one pass at a time
+    times a pass once a full call has filled ``scratch``). ``kv_len`` in
+    ``kw`` is an int <= Skv. Counts nothing."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    window, cap = kw["window"], kw["logit_cap"]
+    lib = build.load_library()
+    with torch.cuda.device(q.device):
+        rc = lib.repro_flash_attention_bwd(
+            *(None if t is None else t.data_ptr()
+              for t in (q, k, v, out, dout, *grads, *scratch)),
+            b, sq, skv, hq, hkv, hd, 1.0 / math.sqrt(hd), int(kw["causal"]),
+            0 if window is None else int(window),
+            0.0 if cap is None else float(cap), int(kw["q_offset"]),
+            kw["kv_len"], int(q.dtype == torch.bfloat16), passes,
+            build.stream_of(q))
+    build.check(lib, "flash_attention_bwd", rc)
 
 
 class FlashAttention(torch.autograd.Function):

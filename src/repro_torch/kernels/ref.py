@@ -553,6 +553,141 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
         return torch.autograd.grad(o, leaves, dout.to(o.dtype))
 
 
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of f32 ``x`` as the backward kernel splits an operand
+    (``cvt.rna.tf32.f32``): hi is x rounded to TF32's 10 mantissa bits,
+    to nearest with ties away from zero (add half of the 13 dropped bits
+    to the magnitude and clear them, on the int32 view), lo the same
+    rounding of ``x - hi`` (exact in f32). A bf16 value is exact in TF32:
+    its lo is 0."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
+def _split_mm(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """``a @ b`` as the tensor cores take it: with ``terms=3`` the split
+    product ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` (the kernel skips the
+    term of an operand whose lo is 0: a zero here), with ``terms=1`` the
+    single TF32 product ``a_hi b_hi``. Each product of TF32 values is
+    exact in f32; the sums are f32."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    if terms == 1:
+        return ah @ bh
+    if terms != 3:
+        raise ValueError(f"terms {terms} must be 1 or 3")
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def flash_attention_bwd_split_ref(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, out: torch.Tensor,
+                                  dout: torch.Tensor, *, causal: bool,
+                                  window: int | None,
+                                  logit_cap: float | None, q_offset: int,
+                                  kv_len: int | None = None,
+                                  terms: int = 3, logits: str = "fma"):
+    """A model of the backward kernel's arithmetic
+    (``csrc/flash_bwd.cu``) in plain PyTorch: the function of
+    :func:`flash_attention_bwd_ref` written out (not autograd) with each
+    product and sum taken as the kernel takes it, as far as PyTorch can
+    say so. The tensor cores' products (:func:`_split_mm`): dP =
+    dO' bf16(v)^T, dk = dS^T q, dq = dS k, and for bf16 inputs dv =
+    bf16(p~)^T dO'. For f32 inputs dv is the kernel's FMA chain over the
+    rows in order (each step in f64, rounded to f32). The logits q k^T:
+    with ``logits="fma"`` the f32 product of :func:`flash_attention_ref`
+    itself (the kernel's f32 FMA chains give the plain version's bits on
+    the card, so here the logits equal the plain ones by construction),
+    with ``logits="tf32"`` a tensor-core product like the others. l is
+    the f64 sum of p~ = exp(x - m), rounded once. The row max is taken
+    over the whole row (the plain version takes it a 4096-key chunk at
+    a time), the row max's gradient dm lands on the row's first argmax
+    key, and a row that sees no key gets no gradient. ``terms=1`` takes
+    each tensor-core product as one TF32 product.
+
+    Two ways it differs from the kernel: a tensor-core product here is a
+    whole-K product summed by PyTorch's f32 matmul, while the kernel
+    sums the terms of each 8-wide k-step in the mma (whose additions
+    truncate) and adds that into f32; and an f64 step of the dv chain
+    rounds twice where the FMA rounds once. Shapes and types as
+    :func:`flash_attention_bwd_ref`'s."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dev = q.device
+    scale = 1.0 / math.sqrt(hd)
+
+    def rows(t):   # [b, sq, hq, hd] -> [b, hkv, sq * g, hd], rows s * g + h
+        return (t.float().reshape(b, sq, hkv, g, hd).permute(0, 2, 1, 3, 4)
+                .reshape(b, hkv, sq * g, hd))
+
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+
+    qr, o, do = rows(q), rows(out), rows(dout)
+    kf = k.float().permute(0, 2, 1, 3)
+    vb = bf16(v.float().permute(0, 2, 1, 3))
+    if logits == "fma":
+        # flash_attention_ref's einsum, chunk by padded chunk
+        chunk = ATTENTION_CHUNK
+        nchunks = -(-skv // chunk)
+        kc = F.pad(k, (0, 0, 0, 0, 0, nchunks * chunk - skv)) \
+            .reshape(b, nchunks, chunk, hkv, hd)
+        q5 = q.reshape(b, sq, hkv, g, hd).float()
+        s = torch.cat([torch.einsum("bskgd,bckd->bskgc", q5, kc[:, c].float())
+                       for c in range(nchunks)], dim=-1)[..., :skv]
+        s = s.permute(0, 2, 1, 3, 4).reshape(b, hkv, sq * g, skv) * scale
+    elif logits == "tf32":
+        s = _split_mm(qr, kf.transpose(-1, -2), terms) * scale
+    else:
+        raise ValueError(f"logits {logits!r} must be 'fma' or 'tf32'")
+    dcap = torch.ones_like(s)
+    if logit_cap is not None:
+        t = torch.tanh(s / logit_cap)
+        s = logit_cap * t
+        dcap = 1 - t * t
+    qpos = q_offset + torch.arange(sq * g, device=dev) // g
+    kvpos = torch.arange(skv, device=dev)
+    key_end = skv if kv_len is None else min(kv_len, skv)
+    mask = (kvpos[None, :] < key_end).expand(sq * g, skv)
+    if causal:
+        mask = mask & (kvpos[None, :] <= qpos[:, None])
+    if window is not None:
+        mask = mask & (qpos[:, None] - kvpos[None, :] < window)
+    seen = mask.any(dim=-1)
+    xm = torch.where(mask, s, -math.inf)
+    m = torch.where(seen, xm.amax(dim=-1), 0.0)
+    arg = xm.argmax(dim=-1)   # the first of tied maxima
+    pt = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = pt.double().sum(dim=-1).float()
+    dos = torch.where(seen[:, None], do / l.clamp(min=1e-30)[..., None], 0.0)
+    dd = (dos * o).sum(dim=-1)
+    dp = bf16(_split_mm(dos, vb.transpose(-1, -2), terms))
+    gr = pt * (dp - dd[..., None])
+    dm = -gr.sum(dim=-1)
+    at_max = F.one_hot(arg, skv).bool() & seen[:, None]
+    ds = (gr + torch.where(at_max, dm[..., None], 0.0)) * dcap
+    dq = _split_mm(ds, kf, terms) * scale
+    dk = _split_mm(ds.transpose(-1, -2), qr, terms) * scale
+    if q.dtype == torch.bfloat16:
+        dv = _split_mm(bf16(pt).transpose(-1, -2), dos, terms)
+    else:   # an FMA chain over the rows, each step in f64
+        pb = bf16(pt).double()
+        dv = torch.zeros((b, hkv, skv, hd), device=dev)
+        for r in range(sq * g):
+            dv = (pb[:, :, r, :, None] * dos[:, :, r, None, :].double()
+                  + dv.double()).float()
+    dv = bf16(dv)
+
+    def unrows(t):
+        return (t.reshape(b, hkv, sq, g, hd).permute(0, 2, 1, 3, 4)
+                .reshape(b, sq, hq, hd))
+    return (unrows(dq).to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
 def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool,
                               window: int | None, logit_cap: float | None,

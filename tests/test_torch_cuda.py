@@ -974,6 +974,15 @@ BWD_CASES = [
     (3, 5, 700, 16, 8, 100, False, None, 50.0, 650, 651),     # decode-like
     (1, 96, 5000, 4, 2, 32, True, None, None, 4904, None),    # > 1 chunk
     (1, 33, 33, 7, 1, 128, True, None, None, 0, None),        # g = 7
+    # the tiles' edges: 64 keys a dk/dv CTA, 64 rows a dq CTA, 32 rows a
+    # dk/dv block; one short of each, one past, and neither
+    (1, 63, 63, 2, 2, 64, True, None, 50.0, 0, None),         # 63 rows, keys
+    (1, 31, 191, 4, 4, 128, False, None, 30.0, 0, 150),       # 31 rows
+    (2, 65, 129, 4, 2, 64, True, 50, None, 64, None),         # 130 rows
+    (1, 70, 70, 4, 2, 8, True, None, 50.0, 0, None),          # hd 8
+    (1, 50, 90, 2, 1, 255, True, 33, 50.0, 40, None),         # hd 255
+    # causal with rows longest last: the grids' reversed order
+    (1, 1000, 1000, 4, 2, 128, True, None, 50.0, 0, None),
 ]
 # rows of more than one 4096-key chunk: the plain version takes the row
 # max and rounds p to bf16 a chunk at a time, the kernel once a row
@@ -1027,6 +1036,64 @@ def test_cuda_flash_bwd_repeats_bit_equal(cuda, dtype):
     a = t_flash.flash_attention_bwd(q, k, v, out, dout, **kw)
     b = t_flash.flash_attention_bwd(q, k, v, out, dout, **kw)
     for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [BWD_CASES[7], BWD_CASES[12]])
+def test_cuda_flash_bwd_repeats_bit_equal_at_the_tiles_edges(cuda, dtype,
+                                                            case):
+    """Bit-equal repeats where the tiles end mid-block and where the
+    causal grids run in reverse."""
+    from repro_torch.kernels import flash as t_flash
+    q, k, v, dout, kw = _bwd_inputs(cuda, case, dtype, seed=2)
+    out = t_ref.flash_attention_ref(q, k, v, **kw)
+    a = t_flash.flash_attention_bwd(q, k, v, out, dout, **kw)
+    b = t_flash.flash_attention_bwd(q, k, v, out, dout, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_bwd_passes_one_at_a_time_equal_the_full_call(cuda, dtype):
+    """The pass mask that times the passes apart: stats, dq and dk/dv
+    launched one at a time give the full call's bits, and a mask outside
+    1..7 is refused."""
+    from repro_torch.kernels import flash as t_flash
+    q, k, v, dout, kw = _bwd_inputs(cuda, BWD_CASES[1], dtype)
+    out = t_ref.flash_attention_ref(q, k, v, **kw)
+    want = t_flash.flash_attention_bwd(q, k, v, out, dout, **kw)
+    kw = {**kw, "kv_len": min(kw["kv_len"], k.shape[1])}
+    grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+    scratch = t_flash.bwd_scratch(q, k.shape[1])
+    for passes in (1, 2, 4):
+        t_flash._launch_bwd(q, k, v, out, dout, grads, scratch, kw, passes)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+    with pytest.raises(RuntimeError, match="flash_attention_bwd failed"):
+        t_flash._launch_bwd(q, k, v, out, dout, grads, scratch, kw, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[7],
+                                  BWD_CASES[11]])
+def test_cuda_flash_bwd_recomputed_logits_equal_the_kept_ones(cuda, dtype,
+                                                              case):
+    """Past ``BWD_DOTS_MAX_BYTES`` each pass recomputes q . k instead of
+    reading what the stats pass kept: the same bits."""
+    from unittest import mock
+    from repro_torch.kernels import flash as t_flash
+    q, k, v, dout, kw = _bwd_inputs(cuda, case, dtype)
+    out = t_ref.flash_attention_ref(q, k, v, **kw)
+    kept = t_flash.flash_attention_bwd(q, k, v, out, dout, **kw)
+    assert t_flash.bwd_scratch(q, k.shape[1])[2] is not None
+    with mock.patch.object(t_flash, "BWD_DOTS_MAX_BYTES", 0):
+        assert t_flash.bwd_scratch(q, k.shape[1])[2] is None
+        again = t_flash.flash_attention_bwd(q, k, v, out, dout, **kw)
+    for x, y in zip(kept, again):
         assert torch.equal(x, y)
 
 
