@@ -76,6 +76,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -131,12 +132,35 @@ TABLE = (   # every pallas_call of the reference, by def line
 FLASH_SOURCES = ["src/repro_torch/kernels/csrc/flash.cu",
                  "src/repro_torch/kernels/csrc/flash_decode.cu",
                  "src/repro_torch/kernels/csrc/flash_tiles.cuh",
-                 "src/repro_torch/kernels/csrc/flash_wgmma.cuh"]
+                 "src/repro_torch/kernels/csrc/flash_wgmma.cuh",
+                 "src/repro_torch/kernels/csrc/flash_mma.cuh"]
 NOTES = {"flash_attention_fused":
          "ports the semantics of the model's attention "
          "(src/repro/models/layers.py:112 at its default): p and v rounded "
          "to bf16 for p.v, summed in f32, f32 inputs included; the Pallas "
          "kernel keeps p.v in f32"}
+
+
+def sass_counts(nvcc: str, lib: Path) -> dict:
+    """Machine instructions and tensor-core ``HMMA`` instructions of each
+    hd-256 ``flash_tc_f32_kernel`` in ``lib`` (``cuobjdump -sass``, beside
+    ``nvcc``), or the reason there are none."""
+    try:
+        out = subprocess.run(
+            [str(Path(nvcc).with_name("cuobjdump")), "-sass", str(lib)],
+            capture_output=True, text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        return {"error": str(e)}
+    counts = {}
+    for fn in out.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "flash_tc_f32_kernel" not in name or "ILi256E" not in name:
+            continue
+        ops = re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", fn)
+        counts[name] = {"instructions": len(ops),
+                        "HMMA": sum(o.startswith("HMMA") for o in ops)}
+    return counts
 
 
 def emit(obj) -> None:
@@ -518,15 +542,18 @@ def attention_bound(torch, q_shape, k_shape, itemsize, causal, window,
                     q_offset, kv_len):
     """``(bound_ms, bound_by, pairs, keys)`` of one attention call: the
     FLOPs of the unmasked pairs (two products of hd) at the dense
-    tensor-core rate of the type (bf16; TF32 for f32), and the bytes of
-    q, out and the keys and values some query sees at the memory
+    tensor-core rate of their operands' type, and the bytes of q, out
+    and the keys and values some query sees at the memory rate. bf16
+    runs both products at the bf16 rate; f32 runs q.k at the TF32 rate
+    and p.v, whose p and v the function rounds to bf16, at the bf16
     rate."""
     b, sq, hq, hd = q_shape
     skv, hkv = k_shape[1], k_shape[2]
     pairs, keys = attention_work(torch, b, sq, hq, skv, causal, window,
                                  q_offset, kv_len)
-    peak = BF16_OPS_PER_S if itemsize == 2 else TF32_OPS_PER_S
-    t_ops = 4 * hd * pairs / peak * 1e3
+    qk_peak = BF16_OPS_PER_S if itemsize == 2 else TF32_OPS_PER_S
+    t_ops = (2 * hd * pairs / qk_peak
+             + 2 * hd * pairs / BF16_OPS_PER_S) * 1e3
     t_bytes = (2 * b * sq * hq * hd + 2 * b * keys * hkv * hd) \
         * itemsize / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
@@ -539,9 +566,10 @@ def attention_bound(torch, q_shape, k_shape, itemsize, causal, window,
 # tokens, a decode layer at the last of 16 steps after that prefill
 # (cache 8192 + 16) at batch 4 (local) and at batch 1 (global: 672 of
 # the serve phase's launches), an odd shape that needs padding on both
-# axes, and the global prefill without the softcap (the attention of
+# axes, the global prefill without the softcap (the attention of
 # qwen1.5, yi and glm4), where F.scaled_dot_product_attention computes
-# the same function
+# the same function, and the training phase's global layer (batch 1 x
+# 4096 tokens: in f32 the shape of every forward launch of phase_train)
 FLASH_CASES = (
     ("prefill_global", 1, 8192, 8192, True, None, 0, None, 50.0),
     ("prefill_window", 1, 8192, 8192, True, 4096, 0, None, 50.0),
@@ -549,7 +577,11 @@ FLASH_CASES = (
     ("decode_global_b1", 1, 1, 8208, False, None, 8207, 8208, 50.0),
     ("odd_padded", 1, 1000, 1300, True, 4096, 300, None, 50.0),
     ("prefill_global_nocap", 1, 8192, 8192, True, None, 0, None, None),
+    ("train_global", 1, 4096, 4096, True, None, 0, None, 50.0),
 )
+# products of hd a visible pair the f32 route issues: q.k as three TF32
+# products (the split), p.v as one bf16 product
+F32_PRODUCTS = {"tf32": 3, "bf16": 1}
 
 
 def _sdpa_no_softcap(torch, q, k, v, causal, window, q_offset, kv_len):
@@ -662,16 +694,18 @@ def planted_faults(ops, q, k, v, got, kw):
 
 def phase_flash(torch, dev, reps):
     """``flash_attention_fused`` against ``flash_attention_ref`` on the
-    card, bf16 and f32, at the serve phase's shapes, through
-    ``ops.fused_attention`` as the model calls it; each line names the
-    route the call launched (``flash._route``, checked against
-    ``launches_by_route``). Each case also holds planted faults to the
-    same limit and requires that they fail it. ``library_ms`` is the
-    same function's: SDPA for the bf16 case without the softcap,
+    card, bf16 and f32, at the serve phase's shapes and the training
+    phase's, through ``ops.fused_attention`` as the model calls it; each
+    line names the route the call launched (``flash._route``, checked
+    against ``launches_by_route``). Each case also holds planted faults
+    to the same limit and requires that they fail it. ``library_ms`` is
+    the same function's: SDPA for the bf16 case without the softcap,
     compiled ``flex_attention`` for the bf16 softcap cases, none for f32
-    (both libraries keep p.v in f32). Returns the bf16 global prefill's
-    line, with the case without the softcap (kernel and SDPA) beside
-    it."""
+    (both libraries keep p.v in f32). f32 lines add the products the
+    ``tc_f32`` route issues and their rate (``issued_tflops``). Returns
+    the bf16 global prefill's line, with the case without the softcap
+    (kernel and SDPA) and the f32 lines of the 8192 prefill and the
+    training shape beside it."""
     from repro_torch.kernels import flash, ops, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -748,6 +782,10 @@ def phase_flash(torch, dev, reps):
                                 "the softcap" + ("" if same_fn else
                                                  ": not the same function")}
             rec["achieved_tflops"] = 4 * hd * pairs / rec["ms"] / 1e9
+            if dtype == torch.float32:
+                rec["products_issued"] = F32_PRODUCTS
+                rec["issued_tflops"] = (2 * sum(F32_PRODUCTS.values()) * hd
+                                        * pairs / rec["ms"] / 1e9)
             emit({"phase": "kernel", "kernel": "flash_attention_fused",
                   **rec})
             require(check["within"], f"flash {name} {dname}: {check}")
@@ -761,7 +799,12 @@ def phase_flash(torch, dev, reps):
     nocap = recs["prefill_global_nocap", "bfloat16"]
     return {**recs["prefill_global", "bfloat16"],
             "nocap_case": {k: nocap[k] for k in (
-                "case", "ms", "bound_ms", "library_ms", "library")}}
+                "case", "ms", "bound_ms", "library_ms", "library")},
+            "f32_cases": [{k: recs[c, "float32"][k] for k in (
+                "case", "route", "ms", "plain_ms", "bound_ms",
+                "max_abs_err", "achieved_tflops", "issued_tflops")}
+                for c in ("prefill_global", "train_global")
+                if (c, "float32") in recs]}
 
 
 def phase_pack(torch, dev, reps):
@@ -1009,7 +1052,7 @@ PORT_KERNELS = ("sort_blocks_kernel", "sort_merge_kernel",
                 "coalesce_cluster_kernel", "pack_tiles_kernel",
                 "zero_skip_encode_rows_kernel",
                 "zero_skip_encode_chunks_kernel", "zero_skip_zero_kernel",
-                "zero_skip_scatter_kernel", "flash_attention_kernel",
+                "zero_skip_scatter_kernel", "flash_tc_f32_kernel",
                 "flash_tc_prefill_kernel", "flash_split_decode_kernel",
                 "flash_split_merge_kernel", "flash_bwd_stats_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
@@ -1485,7 +1528,7 @@ def phase_serve(torch, dev):
           "flash_launches_by_route": routes_b})
     # every prefill layer on the tensor cores, every decode layer split
     per_run = {"tc_prefill": cfg.n_layers,
-               "split_decode": gen_len * cfg.n_layers, "scalar_f32": 0}
+               "split_decode": gen_len * cfg.n_layers, "tc_f32": 0}
     for run, got in (("generate", routes_a), ("long_prompt", routes_b)):
         require(got == per_run, f"serve {run}: flash routes {got}, "
                 f"expected {per_run}")
@@ -2411,6 +2454,8 @@ def phase_train(torch, dev):
             require(launches[k] > 0, f"train: {k} never launched")
         require(sum(routes.values()) == launches["flash_attention_fused"],
                 f"train: flash routes {routes} vs {launches}")
+        require(routes["tc_f32"] == launches["flash_attention_fused"],
+                f"train: f32 attention off the tc_f32 route: {routes}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -2446,7 +2491,7 @@ def main() -> int:
                   if "registers" in ln or "Compiling entry" in ln
                   or "spill" in ln]
     emit({"phase": "build", "seconds": build_s, "library": lib_path.name,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "sass": sass_counts(build._nvcc(), lib_path)})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2486,6 +2531,7 @@ def main() -> int:
         "kernel_route": flash_rec["route"],
         "library": flash_rec["library"],
         "nocap_case": flash_rec["nocap_case"],
+        "f32_cases": flash_rec["f32_cases"],
         "launches_by_route": routes},
         "pack": {"path": "a training save's domain image (phase_train)",
                  "shape": train_pack["shape"],

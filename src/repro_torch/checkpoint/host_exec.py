@@ -37,8 +37,8 @@ import torch
 
 from repro_torch.core import placement as placement_mod
 from repro_torch.core._tensor import (cat_views, exclusive_cumsum,
-                                      gather_spans, repeat_index,
-                                      scatter_spans, to_host)
+                                      gather_spans, scatter_spans,
+                                      to_host)
 from repro_torch.core.codec import get_codec
 from repro_torch.core.cost_model import optimal_depth, pipeline_span
 from repro_torch.core.faults import (TornWriteError, UnrecoverableFaultError,
@@ -139,28 +139,58 @@ def merge_coalesce(reqs):
     return o, ln, packed, n_comparisons(int(n_req[0]), len(reqs))
 
 
+def _range_max(lo, hi, val, n: int):
+    """``out[i] = max(val[j] for lo[j] <= i < hi[j])``, -1 where no range
+    covers i, over ``n`` cells, for ranges of at least one cell. Each
+    range is written as two power-of-two blocks that cover it (a sparse
+    table read backwards), and each level's maxima are pushed into the
+    two halves below: work ``n log n`` over cells, never per byte."""
+    length = hi - lo
+    k = torch.floor(torch.log2(length.double())).to(torch.int64)
+    k = k - ((1 << k) > length).to(torch.int64)         # log2 of a double
+    k = k + ((2 << k) <= length).to(torch.int64)        # may round
+    out = None
+    for lev in range(int(k.max().item()), -1, -1):
+        t = torch.full((n,), -1, dtype=torch.int64, device=val.device)
+        sel = k == lev
+        t.scatter_reduce_(0, lo[sel], val[sel], "amax")
+        t.scatter_reduce_(0, hi[sel] - (1 << lev), val[sel], "amax")
+        if out is not None:
+            half = 1 << lev
+            t = torch.maximum(t, out)
+            t[half:] = torch.maximum(t[half:], out[:n - half])
+        out = t
+    return out
+
+
 def _last_writer_pieces(local, lens, starts):
     """Sorted, disjoint pieces that give every position the bytes of the
     LAST request (in sorted order) covering it — what the reference's
     request-by-request copy leaves — for a list where a request lies
     nested inside an earlier, longer one (or ends before an earlier
-    one's end). Returns ``(local, lens, starts)`` int64 tensors."""
-    total = int(lens.sum().item())
-    req_of = repeat_index(lens, total)
-    within = (torch.arange(total, device=lens.device)
-              - exclusive_cumsum(lens).gather(0, req_of))
-    pos = local.gather(0, req_of) + within
-    lo = int(local.min().item())
-    span = int((local + lens).max().item()) - lo
-    winner = torch.full((span,), -1, dtype=torch.int64, device=lens.device)
-    winner.scatter_reduce_(0, pos - lo, req_of, "amax")
-    p = torch.nonzero(winner >= 0).squeeze(1)
-    w = winner[p]
-    new = torch.ones_like(p, dtype=torch.bool)
-    new[1:] = (p[1:] != p[:-1] + 1) | (w[1:] != w[:-1])
+    one's end). Returns ``(local, lens, starts)`` int64 tensors.
+
+    Works on the elementary intervals between the requests' ends (at
+    most twice as many as requests), never on bytes: each interval's
+    winner is the largest index of a request covering it, and
+    neighbouring intervals with one winner merge into a piece."""
+    req = torch.nonzero(lens > 0).squeeze(1)
+    a, e = local[req], local[req] + lens[req]
+    bounds = torch.unique(torch.cat([a, e]))     # sorted
+    n = max(bounds.numel() - 1, 0)
+    winner = _range_max(torch.searchsorted(bounds, a),
+                        torch.searchsorted(bounds, e), req, n) \
+        if req.numel() else torch.zeros(0, dtype=torch.int64,
+                                        device=lens.device)
+    c = torch.nonzero(winner >= 0).squeeze(1)
+    s, t, w = bounds[c], bounds[c + 1], winner[c]
+    new = torch.ones_like(c, dtype=torch.bool)
+    new[1:] = (s[1:] != t[:-1]) | (w[1:] != w[:-1])
+    run = torch.cumsum(new.to(torch.int64), 0) - 1
     head = torch.nonzero(new).squeeze(1)
-    piece_len = torch.diff(torch.cat([head, head.new_tensor([p.numel()])]))
-    p0, w0 = p[head] + lo, w[head]
+    piece_len = torch.zeros(head.numel(), dtype=torch.int64,
+                            device=lens.device).index_add_(0, run, t - s)
+    p0, w0 = s[head], w[head]
     return p0, piece_len, starts[w0] + (p0 - local[w0])
 
 

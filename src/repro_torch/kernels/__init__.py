@@ -13,10 +13,10 @@
 * ``flash.flash_attention_fused`` — online-softmax GQA attention with
   causal, window, softcap and kv_len masks, the serving path's
   attention (CUDA, three routes: ``tc_prefill`` and ``split_decode`` for
-  bf16, ``scalar_f32``);
+  bf16, ``tc_f32`` for f32, all on the tensor cores);
 * ``flash.flash_attention_bwd`` — its gradient (dq, dk, dv), the
   training path's attention backward, behind the autograd function
-  ``flash.FlashAttention`` (CUDA, scalar f32, f32 and bf16);
+  ``flash.FlashAttention`` (CUDA, f32 and bf16);
 * ``ref`` — the plain PyTorch versions the wrappers run on the CPU;
 * ``ops`` — padding, chunking and RequestList integration;
 * ``build`` — the nvcc build and ctypes loading, at first launch.

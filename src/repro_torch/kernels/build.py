@@ -28,7 +28,7 @@ SOURCES = ("sort.cu", "coalesce_kernel.cu", "fused_round.cu",
            "zero_skip.cu", "pack.cu", "flash.cu", "flash_decode.cu",
            "flash_bwd.cu")
 HEADERS = ("common.cuh", "bitonic.cuh", "pack_tiles.cuh", "flash_tiles.cuh",
-           "flash_wgmma.cuh")
+           "flash_wgmma.cuh", "flash_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -46,261 +46,458 @@
 // warpgroups is the next step.
 //
 // Route split_decode (flash_decode.cu) takes bf16 calls of at most 16
-// rows per (batch, kv head); route scalar_f32 (below) takes f32.
+// rows per (batch, kv head); route tc_f32 (below) takes f32.
 //
-// Route scalar_f32, the kernel of the first port, for f32 inputs only
-// (TF32 tensor cores would not hold the 5e-3 f32 check). A CTA owns 64
-// rows. The Q rows and each tile of kKeys keys and values are converted
-// to f32 into shared memory (rows padded by one word: no bank
-// conflicts). 256 threads form a 16 x 16 grid; thread (ty, tx) owns
-// rows ty + 16 i (i < 4) in both products: keys tx + 16 j of the logits
-// and columns tx + 16 c of the output, so each row's running max, sum
-// and scale stay in the registers of the 16 lanes of a half warp
-// (shuffle reductions), and only the probabilities pass through shared
-// memory between the two products. It walks the same key tiles. A row
-// whose keys are all masked in a tile it does walk behaves as in the
-// reference (its weights there are wiped by the first real key), so
-// every route's result is the reference's for every row with a real
-// key. What bounds it: scalar f32 FMAs fed from shared memory (16 FMAs
-// per 8 shared loads in q.k, 64 per 20 in p.v).
+// Route tc_f32 (f32 inputs): the same function on the tensor cores,
+// redone for Hopper (the first port's kernel here ran scalar f32 FMAs
+// from shared memory at 2% of its bound, slower than its own plain
+// version). What bounds it on the card: operations, as tc_prefill, and
+// in this design the instructions that feed the mma.sync units.
+//
+// q . k is a split TF32 product, a_lo b_hi + a_hi b_lo + a_hi b_hi on
+// mma.sync.m16n8k8 (flash_mma.cuh), about f32's accuracy: hi is the
+// cvt.rna rounding (tf32_hi: two integer operations, where the cvt's
+// emulation costs four), lo = x - hi goes to the tensor core whole,
+// which truncates it (the backward rounds its lo).
+// A single TF32 product holds the f32 check on unit-sized logits but
+// not on logits four times larger (tests/test_torch_flash_f32.py): its
+// error grows with the logits, the split's does not. p.v takes p and v
+// rounded to bf16 (the function's own rounding), an exact bf16 product
+// on mma.sync.m16n8k16 with an f32 sum; V is rounded to bf16 once a tile
+// into a 128-byte-swizzled tile that ldmatrix.trans reads as the B
+// operand. The softmax runs in registers on the C layout (quad shuffles)
+// with expf and libdevice's tanhf.
+//
+// A CTA of 8 warps owns 64 rows in four groups of 16 and walks 32-key
+// tiles; the two warps of a row group each take 16 of a tile's keys and
+// half of O's columns (64 registers of O a thread at hd 256, not 128),
+// and exchange the tile's row max and the bf16 P through shared memory
+// under a named barrier of the pair (P reaches p.v's A operand by
+// ldmatrix). K and V stream as f32 through two cp.async stages (tile
+// t + 1 loads while tile t computes); shared memory at hd 256: Q 64 KB
+// + 2 x (K, V) 128 KB + bf16 V 16 KB + P 5 KB = 213 KB, one CTA an SM;
+// below hd 256 two (registers held to 128 a thread). Q's and K's f32
+// fragments are split as they load, by 8-byte loads (each k-step's
+// columns go to the mma's k slots in the order 0 2 4 6 1 3 5 7 for both
+// operands), and each term of the logits has its own accumulator (three
+// mma chains of 32 k-steps a tile, not one of 96).
+//
+// Measured on an H100 SXM at 700 W (f32 causal softcap prefill [1, 8192,
+// 16, 256] vs 8 kv heads): one warp a row group with all of the tile's
+// keys and O's columns and P in registers (p.v's A operand is the
+// logits' C layout) 15.3 ms, two warps 14.1; K split once a tile into
+// shared hi and lo tiles (the staging then single) 17.4; one TF32
+// product in place of three saved 7%: issued instructions, not the mma
+// rate, set the pace (cvt.rna's emulation and the swizzled addresses
+// took about 100 of a k-step's 130). 8-byte fragment loads and the
+// two-operation split: 12.3 (one warp) and 10.4 (two); separate
+// accumulators 9.9 with two warps (one warp lost 5% to 255 registers).
+// One warp a row group won at hd 128 ([1, 4096, 8, 128] causal: 0.60 vs
+// 0.74 ms, two CTAs an SM against one); one design is kept, two warps
+// with two CTAs an SM below hd 256 (0.70 ms there, 20 bytes of spill).
+// Tiles of 64 keys do not fit at hd 256 (Q 64 KB + 2 stages of 128 KB).
+//
+// The CTA walks only the key tiles some row of it can see, a row group
+// skips a tile none of its rows sees, masks apply only on tiles that
+// cross an edge, and the heaviest causal row blocks launch first. Where
+// a row does not start on 16 bytes (hd not a multiple of 4, a tensor off
+// a 16-byte boundary) the same kernel loads element by element (VEC =
+// false). Every sum runs in a fixed order: two calls on the same inputs
+// give the same bits.
 #include <cuda_bf16.h>
 #include <limits.h>
 
 #include "common.cuh"
+#include "flash_mma.cuh"
 #include "flash_tiles.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
 
-constexpr int kRows = 64;      // (query, head) rows per CTA
-constexpr int kKeys = 64;      // keys per shared-memory tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kPerThread = 4;  // rows (and keys) per thread: 64 / 16
-using repro_flash::kNegInf;
+// ---------------------------------------------------------------- tc_f32
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-constexpr size_t smem_bytes(int hdp) {
-  return sizeof(float) *
-         (static_cast<size_t>(kRows + 2 * kKeys) * (hdp + 1) +
-          static_cast<size_t>(kRows) * (kKeys + 1));
-}
-
-// Max over the 16 lanes of a half warp (the lanes that share a row).
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// f32 q [B, Sq, Hq, hd], k/v [B, Skv, Hkv, hd], out like q; all
-// contiguous. HDP: hd rounded up to a power of two >= 16 (the padding is
-// zero).
 template <int HDP>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const repro_flash::Params prm) {
-  const float* __restrict__ q = static_cast<const float*>(prm.q);
-  const float* __restrict__ k = static_cast<const float*>(prm.k);
-  const float* __restrict__ v = static_cast<const float*>(prm.v);
-  float* __restrict__ out = static_cast<float*>(prm.out);
-  const int sq = prm.sq, skv = prm.skv, hq = prm.hq, hkv = prm.hkv,
-            hd = prm.hd;
-  const float scale = prm.scale, cap = prm.cap;
-  const int causal = prm.causal, window = prm.window,
-            q_offset = prm.q_offset, kv_len = prm.kv_len;
-  constexpr int LD = HDP + 1;
-  constexpr int kCols = HDP / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [kRows][LD]
-  float* ks = qs + kRows * LD;      // [kKeys][LD]
-  float* vs = ks + kKeys * LD;      // [kKeys][LD]
-  float* ps = vs + kKeys * LD;      // [kRows][kKeys + 1]
+struct F32Tile {
+  static constexpr int kThreads = 256;   // 8 warps, two a row group
+  // CTAs an SM: two below hd 256 (registers held to 128 a thread)
+  static constexpr int kMinBlocks = HDP == 256 ? 1 : 2;
+  static constexpr int kRows = 64;             // (query, head) rows a CTA
+  static constexpr int kKeys = 32;             // keys a tile
+  static constexpr int kWarpKeys = kKeys / 2;  // a warp's keys of a tile
+  static constexpr int kCols = HDP / 2;        // a warp's columns of O
+  static constexpr int kQFloats = kRows * HDP;
+  static constexpr int kKFloats = kKeys * HDP;   // one K or V tile in f32
+  // the bf16 V tile: 64-column panels of 128-byte rows
+  static constexpr int kVBytes = kKeys * 128 * ((HDP + 63) / 64);
+  // bf16 P, rows of kKeys + 8 (80 bytes: ldmatrix's 8 rows fall in 8
+  // bank groups)
+  static constexpr int kPLd = kKeys + 8;
+  static constexpr int kPBytes = kRows * kPLd * 2;
+  // Q, 2 stages of (K, f32 V), the bf16 V, P
+  static constexpr size_t kSmem =
+      sizeof(float) * (kQFloats + 4 * kKFloats) + kVBytes + kPBytes;
+};
 
-  const int g = hq / hkv;
-  const int b = blockIdx.x / hkv;
-  const int kvh = blockIdx.x % hkv;
-  const long long rows = static_cast<long long>(sq) * g;
-  const long long row0 = static_cast<long long>(blockIdx.y) * kRows;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
+// Whether every row of the f32 q, k, v and out starts on 16 bytes.
+inline bool rows_aligned16_f32(const repro_flash::Params& p) {
+  const uintptr_t any =
+      reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.k) |
+      reinterpret_cast<uintptr_t>(p.v) | reinterpret_cast<uintptr_t>(p.out);
+  return p.hd % 4 == 0 && any % 16 == 0;
+}
 
-  // this CTA's query rows into shared memory, as f32
-  for (int idx = tid; idx < kRows * HDP; idx += kThreads) {
-    const int r = idx / HDP, d = idx % HDP;
-    const long long row = row0 + r;
-    float x = 0.f;
-    if (row < rows && d < hd) {
-      const long long s = row / g, h = row % g;
-      x = q[((static_cast<long long>(b) * sq + s) * hq +
-             static_cast<long long>(kvh) * g + h) * hd + d];
-    }
-    qs[r * LD + d] = x;
-  }
+// x as a TF32 pair: hi = tf32_hi(x), lo = x - hi (exact), passed
+// whole: the tensor core reads its TF32 bits (truncating them).
+__device__ __forceinline__ void split_fast(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = repro_flash::tf32_hi(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
 
-  int q_pos[kPerThread];
+// Scale, softcap (libdevice's tanhf, through the cap's f32 reciprocal
+// as PyTorch divides by a scalar) and, where `masked`, mask a warp's
+// logits of keys key0 + [0, KEYS) in place; each of the thread's two
+// rows' max over them, reduced over the quad.
+template <int KEYS>
+__device__ __forceinline__ void f32_logits(float (&s)[KEYS / 8][4],
+                                           float (&row_max)[2],
+                                           const repro_flash::Params& p,
+                                           bool masked, const int (&qpos)[2],
+                                           int key0, int key_end, int lane) {
+  using namespace repro_flash;
+  const float inv_cap = p.cap > 0.f ? 1.f / p.cap : 0.f;
+  row_max[0] = row_max[1] = kNegInf;
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i)
-    q_pos[i] = q_offset + static_cast<int>((row0 + ty + 16 * i) / g);
+  for (int j = 0; j < KEYS / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * p.scale;
+      if (p.cap > 0.f) x = p.cap * tanhf(x * inv_cap);
+      if (masked) {
+        const int key = key0 + j * 8 + (lane & 3) * 2 + (e & 1);
+        const int qp = qpos[e >> 1];
+        bool ok = key < key_end;
+        if (p.causal) ok = ok && key <= qp;
+        if (p.window > 0) ok = ok && qp - key < p.window;
+        x = ok ? x : kNegInf;
+      }
+      s[j][e] = x;
+      row_max[e >> 1] = fmaxf(row_max[e >> 1], x);
+    }
+  row_max[0] = quad_max(row_max[0]);
+  row_max[1] = quad_max(row_max[1]);
+}
+
+// The online-softmax step after f32_logits, given the tile's row max:
+// m moves to the new max, l (this thread's partial, of the unrounded
+// probabilities) and o are rescaled, and s becomes exp(x - m) (expf;
+// x - m first, so a masked logit under a row max that is still the
+// mask value gives exactly 1, as the reference's exp(x - m)).
+template <int KEYS, int COLS>
+__device__ __forceinline__ void f32_softmax(float (&s)[KEYS / 8][4],
+                                            float (&o)[COLS / 8][4],
+                                            float (&m)[2], float (&l)[2],
+                                            const float (&tile_max)[2]) {
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m[i], tile_max[i]);
+    alpha[i] = expf(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < KEYS / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pr = expf(s[j][e] - m[e >> 1]);
+      l[e >> 1] += pr;
+      s[j][e] = pr;
+    }
+#pragma unroll
+  for (int n = 0; n < COLS / 8; ++n) {
+    o[n][0] *= alpha[0];
+    o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1];
+    o[n][3] *= alpha[1];
+  }
+}
+
+// The two warps that share 16 rows (named barrier 1 + row group).
+__device__ __forceinline__ void pair_sync(int rg) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + rg));
+}
+
+// VEC: rows_aligned16_f32 (tiles load by cp.async), else element-wise.
+template <int HDP, bool VEC>
+__global__ void __launch_bounds__(F32Tile<HDP>::kThreads,
+                                  F32Tile<HDP>::kMinBlocks)
+    flash_tc_f32_kernel(const repro_flash::Params p) {
+  using C = F32Tile<HDP>;
+  using namespace repro_flash;
+  extern __shared__ __align__(128) float f32_smem[];
+  __shared__ float pair_red[2][C::kRows];   // row max, then l
+  float* qs = f32_smem;                       // [kRows][HDP], at<HDP>
+  float* kbuf = qs + C::kQFloats;             // 2 x [kKeys][HDP]
+  float* vbuf = kbuf + 2 * C::kKFloats;       // 2 x [kKeys][HDP], f32
+  const uint32_t v_tile = smem_u32(vbuf + 2 * C::kKFloats);   // bf16
+  const uint32_t p_tile = v_tile + C::kVBytes;   // bf16 [kRows][kPLd]
+  const auto* q = static_cast<const float*>(p.q);
+  const auto* k = static_cast<const float*>(p.k);
+  const auto* v = static_cast<const float*>(p.v);
+  auto* out = static_cast<float*>(p.out);
+
+  const int g = p.hq / p.hkv;
+  const long long rows = static_cast<long long>(p.sq) * g;
+  const int n_rb = static_cast<int>((rows + C::kRows - 1) / C::kRows);
+  const int heads = p.b * p.hkv;
+  const int rb = n_rb - 1 - static_cast<int>(blockIdx.x / heads);
+  const int bh = static_cast<int>(blockIdx.x % heads);
+  const int b = bh / p.hkv, kvh = bh % p.hkv;
+  const long long row0 = static_cast<long long>(rb) * C::kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  auto row_off = [&](long long row) {
+    const long long s = row / g, h = row % g;
+    return ((static_cast<long long>(b) * p.sq + s) * p.hq +
+            static_cast<long long>(kvh) * g + h) * p.hd;
+  };
 
   // key tiles that some row of this CTA can see
-  const long long last_row = (row0 + kRows < rows ? row0 + kRows : rows) - 1;
+  const int key_end = min(p.skv, p.kv_len);
+  const long long last_row = min(row0 + C::kRows, rows) - 1;
   const int s_first = static_cast<int>(row0 / g);
   const int s_last = static_cast<int>(last_row / g);
-  int hi = skv < kv_len ? skv : kv_len;
-  if (causal && q_offset + s_last + 1 < hi) hi = q_offset + s_last + 1;
+  int hi = key_end;
+  if (p.causal) hi = min(hi, p.q_offset + s_last + 1);
   int lo = 0;
-  if (window > 0 && q_offset + s_first - window + 1 > lo)
-    lo = q_offset + s_first - window + 1;
-  const int t_lo = lo / kKeys;
-  const int t_hi = hi > lo ? (hi + kKeys - 1) / kKeys : t_lo;
+  if (p.window > 0) lo = max(lo, p.q_offset + s_first - p.window + 1);
+  const int t_lo = lo / C::kKeys;
+  const int t_hi = hi > lo ? (hi + C::kKeys - 1) / C::kKeys : t_lo;
 
-  float m[kPerThread], l[kPerThread], acc[kPerThread][kCols];
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
+  const long long stride = static_cast<long long>(p.hkv) * p.hd;
+  const long long kv0 = (static_cast<long long>(b) * p.skv * p.hkv + kvh) *
+                        p.hd;
+  auto load_stage = [&](int t) {
+    const int key0 = t * C::kKeys, st = (t - t_lo) & 1;
+    auto off = [&](int r) {
+      return kv0 + static_cast<long long>(key0 + r) * stride;
+    };
+    load_tile<HDP, C::kKeys, C::kThreads>(kbuf + st * C::kKFloats, k,
+                                          key_end - key0, p.hd, off, VEC);
+    load_tile<HDP, C::kKeys, C::kThreads>(vbuf + st * C::kKFloats, v,
+                                          key_end - key0, p.hd, off, VEC);
+  };
+  load_tile<HDP, C::kRows, C::kThreads>(
+      qs, q, static_cast<int>(min(rows - row0, 1LL * C::kRows)), p.hd,
+      [&](int r) { return row_off(row0 + r); }, VEC);
+  if (t_lo < t_hi) load_stage(t_lo);
+  cp_async_commit();
 
-  const long long kv_row_stride = static_cast<long long>(hkv) * hd;
-  const float* kb = k + (static_cast<long long>(b) * skv * hkv + kvh) * hd;
-  const float* vb = v + (static_cast<long long>(b) * skv * hkv + kvh) * hd;
+  // this warp's 16 rows (a tile none of them sees is skipped; a tile all
+  // of them see whole is not masked), its keys and columns, and this
+  // thread's two rows (lane / 4 and lane / 4 + 8)
+  const int rg = warp & 3, kh = warp >> 2;
+  const int m0 = 16 * rg, n0 = kh * C::kWarpKeys, col0 = kh * C::kCols;
+  const long long w_row0 = row0 + m0;
+  const bool w_live = w_row0 < rows;
+  const long long w_last = min(w_row0 + 15, rows - 1);
+  const int ws_first = static_cast<int>(min(w_row0, rows - 1) / g);
+  const int ws_last = static_cast<int>(w_last / g);
+  const int qpos[2] = {
+      p.q_offset + static_cast<int>((w_row0 + (lane >> 2)) / g),
+      p.q_offset + static_cast<int>((w_row0 + (lane >> 2) + 8) / g)};
+
+  // The logits' fragments: each k-step's 8 columns k0 .. k0 + 7 go to
+  // the mma's k slots in the order 0 2 4 6 1 3 5 7 for both operands
+  // (slot t takes column k0 + 2t, slot t + 4 column k0 + 2t + 1; the
+  // sum over the slots is the same), so a thread's two columns of a row
+  // are one 8-byte load. In the at<HDP> layout column k0 + 2t of a row r
+  // with r % 8 = lane / 4 lies at c0 + col[k0 / 8 % 4] (c0 = k0 rounded
+  // down to 32): the warp's A rows (m0 + lane / 4, + 8) and B rows (keys
+  // n0 + 8 j + lane / 4) all share it.
+  int col[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    col[j] = 8 * (j ^ ((lane >> 2) & 3)) +
+             ((2 * (lane & 3)) ^ ((lane >> 2) & 4));
+  const float* qa = qs + (m0 + (lane >> 2)) * HDP;
+
+  float o[C::kCols / 8][4];
+#pragma unroll
+  for (int n = 0; n < C::kCols / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   for (int t = t_lo; t < t_hi; ++t) {
-    const int key0 = t * kKeys;
-    __syncthreads();   // the previous tile's readers are done
-    for (int idx = tid; idx < kKeys * HDP; idx += kThreads) {
-      const int r = idx / HDP, d = idx % HDP;
-      const int key = key0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (key < skv && d < hd) {
-        kx = kb[key * kv_row_stride + d];
-        vx = round_bf16(vb[key * kv_row_stride + d]);
-      }
-      ks[r * LD + d] = kx;
-      vs[r * LD + d] = vx;
+    const int st = (t - t_lo) & 1;
+    cp_async_wait<0>();
+    __syncthreads();   // tile t is in; tile t - 1's readers are done
+    if (t + 1 < t_hi) load_stage(t + 1);
+    cp_async_commit();
+    // V rounded to bf16 into the swizzled tile ldmatrix reads
+    const float* vs = vbuf + st * C::kKFloats;
+#pragma unroll
+    for (int idx = tid; idx < C::kKeys * HDP / 4; idx += C::kThreads) {
+      const int r = idx / (HDP / 4), c = (idx % (HDP / 4)) * 4;
+      const float4 x = *reinterpret_cast<const float4*>(vs + at<HDP>(r, c));
+      asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(
+                       v_tile + tile_off<C::kKeys>(r, c >> 3) + (c & 7) * 2),
+                   "r"(pack_bf16(x.x, x.y)), "r"(pack_bf16(x.z, x.w)));
     }
-    __syncthreads();
-
-    // logits for rows ty + 16 i, keys tx + 16 j
-    float s[kPerThread][kPerThread];
+    const int key0 = t * C::kKeys, key_last = key0 + C::kKeys - 1;
+    const bool seen = w_live &&
+                      (!p.causal || key0 <= p.q_offset + ws_last) &&
+                      (p.window <= 0 ||
+                       key_last > p.q_offset + ws_first - p.window);
+    float s[C::kWarpKeys / 8][4];
+    if (seen) {
+      // S = Q . K^T in split TF32: a chain over the head dim for each
+      // term, added as (lo hi + hi lo) + hi hi
+      const float* kb = kbuf + st * C::kKFloats + (n0 + (lane >> 2)) * HDP;
+      float s2[C::kWarpKeys / 8][4], s3[C::kWarpKeys / 8][4];
 #pragma unroll
-    for (int i = 0; i < kPerThread; ++i)
+      for (int j = 0; j < C::kWarpKeys / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < kPerThread; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HDP; ++d) {
-      float qv[kPerThread], kv[kPerThread];
+        for (int e = 0; e < 4; ++e) s[j][e] = s2[j][e] = s3[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < kPerThread; ++i) qv[i] = qs[(ty + 16 * i) * LD + d];
+      for (int c0 = 0; c0 < HDP; c0 += 32)
 #pragma unroll
-      for (int j = 0; j < kPerThread; ++j) kv[j] = ks[(tx + 16 * j) * LD + d];
+        for (int ks = 0; ks < 4; ++ks) {
+          const float2 a0 = *reinterpret_cast<const float2*>(
+              qa + c0 + col[ks]);
+          const float2 a1 = *reinterpret_cast<const float2*>(
+              qa + 8 * HDP + c0 + col[ks]);
+          Frag<4, true> a;
+          split_fast(a0.x, a.hi[0], a.lo[0]);
+          split_fast(a1.x, a.hi[1], a.lo[1]);
+          split_fast(a0.y, a.hi[2], a.lo[2]);
+          split_fast(a1.y, a.hi[3], a.lo[3]);
 #pragma unroll
-      for (int i = 0; i < kPerThread; ++i)
+          for (int j = 0; j < C::kWarpKeys / 8; ++j) {
+            const float2 y = *reinterpret_cast<const float2*>(
+                kb + 8 * j * HDP + c0 + col[ks]);
+            Frag<2, true> bk;
+            split_fast(y.x, bk.hi[0], bk.lo[0]);
+            split_fast(y.y, bk.hi[1], bk.lo[1]);
+            mma(s2[j], a.lo, bk.hi);
+            mma(s3[j], a.hi, bk.lo);
+            mma(s[j], a.hi, bk.hi);
+          }
+        }
 #pragma unroll
-        for (int j = 0; j < kPerThread; ++j) s[i][j] += qv[i] * kv[j];
-    }
-
-    // scale, softcap, mask; online softmax per row
+      for (int j = 0; j < C::kWarpKeys / 8; ++j)
 #pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      float row_max = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        const int kv_pos = key0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (cap > 0.f) x = cap * tanhf(x / cap);
-        bool ok = kv_pos < skv && kv_pos < kv_len;
-        if (causal) ok = ok && kv_pos <= q_pos[i];
-        if (window > 0) ok = ok && q_pos[i] - kv_pos < window;
-        s[i][j] = ok ? x : kNegInf;
-        row_max = fmaxf(row_max, s[i][j]);
+        for (int e = 0; e < 4; ++e) s[j][e] += s2[j][e] + s3[j][e];
+      const bool masked =
+          key_last >= key_end ||
+          (p.causal && key_last > p.q_offset + ws_first) ||
+          (p.window > 0 && key0 <= p.q_offset + ws_last - p.window);
+      float tile_max[2];
+      f32_logits<C::kWarpKeys>(s, tile_max, p, masked, qpos, key0 + n0,
+                               key_end, lane);
+      // the row max over both warps' keys (max: any order, same bits)
+      if ((lane & 3) == 0) {
+        pair_red[kh][m0 + (lane >> 2)] = tile_max[0];
+        pair_red[kh][m0 + (lane >> 2) + 8] = tile_max[1];
       }
-      const float m_new = fmaxf(m[i], half_warp_max(row_max));
-      const float alpha = expf(m[i] - m_new);
-      float row_sum = 0.f;
+      pair_sync(rg);
 #pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        row_sum += p;
-        ps[(ty + 16 * i) * (kKeys + 1) + tx + 16 * j] = round_bf16(p);
-      }
-      l[i] = l[i] * alpha + half_warp_sum(row_sum);
-      m[i] = m_new;
+      for (int i = 0; i < 2; ++i)
+        tile_max[i] = fmaxf(pair_red[0][m0 + (lane >> 2) + 8 * i],
+                            pair_red[1][m0 + (lane >> 2) + 8 * i]);
+      f32_softmax<C::kWarpKeys, C::kCols>(s, o, m, l, tile_max);
+      // this warp's probabilities, rounded to bf16, for both warps
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+      for (int j = 0; j < C::kWarpKeys / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = m0 + (lane >> 2) + 8 * i;
+          const int c = n0 + 8 * j + (lane & 3) * 2;
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                           p_tile + (r * C::kPLd + c) * 2),
+                       "r"(pack_bf16(s[j][2 * i], s[j][2 * i + 1])));
+        }
+      pair_sync(rg);
     }
-    __syncthreads();
-
-    // acc += p . v for rows ty + 16 i, columns tx + 16 c
-#pragma unroll 4
-    for (int key = 0; key < kKeys; ++key) {
-      float p[kPerThread];
+    __syncthreads();   // the bf16 V tile is written
+    if (seen) {
+      // o += P . V: P (16 rows x 32 keys) from shared memory by ldmatrix
 #pragma unroll
-      for (int i = 0; i < kPerThread; ++i)
-        p[i] = ps[(ty + 16 * i) * (kKeys + 1) + key];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float vx = vs[key * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < kPerThread; ++i) acc[i][c] += p[i] * vx;
+      for (int ks = 0; ks < C::kKeys / 16; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(p_tile + ((m0 + (lane & 15)) * C::kPLd + ks * 16 +
+                          (lane >> 4) * 8) * 2,
+                a[0], a[1], a[2], a[3]);
+        pv_k16<C::kKeys, C::kCols>(o, a, v_tile, ks, col0, lane);
       }
     }
   }
+  cp_async_wait<0>();
 
+  // l: the two warps' partials of each row, in warp order
+  float lt[2] = {quad_sum(l[0]), quad_sum(l[1])};
+  __syncthreads();   // the last tile's pair_red readers are done
+  if ((lane & 3) == 0) {
+    pair_red[kh][m0 + (lane >> 2)] = lt[0];
+    pair_red[kh][m0 + (lane >> 2) + 8] = lt[1];
+  }
+  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const long long row = row0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i)
+    lt[i] = pair_red[0][m0 + (lane >> 2) + 8 * i] +
+            pair_red[1][m0 + (lane >> 2) + 8 * i];
+  const float inv[2] = {1.f / fmaxf(lt[0], 1e-30f),
+                        1.f / fmaxf(lt[1], 1e-30f)};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long row = w_row0 + (lane >> 2) + 8 * i;
     if (row >= rows) continue;
-    const long long s = row / g, h = row % g;
-    float* o = out + ((static_cast<long long>(b) * sq + s) * hq +
-                      static_cast<long long>(kvh) * g + h) * hd;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    float* o_row = out + row_off(row);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int d = tx + 16 * c;
-      if (d < hd) o[d] = acc[i][c] * inv;
+    for (int n = 0; n < C::kCols / 8; ++n) {
+      const int d = col0 + n * 8 + (lane & 3) * 2;
+      if (d >= p.hd) continue;
+      const float x0 = o[n][2 * i] * inv[i], x1 = o[n][2 * i + 1] * inv[i];
+      if constexpr (VEC) {
+        *reinterpret_cast<float2*>(o_row + d) = make_float2(x0, x1);
+      } else {
+        o_row[d] = x0;
+        if (d + 1 < p.hd) o_row[d + 1] = x1;
+      }
     }
   }
 }
 
-template <int HDP>
-cudaError_t launch_scalar(const repro_flash::Params& p, cudaStream_t stream) {
-  auto* kernel = flash_attention_kernel<HDP>;
-  const size_t bytes = smem_bytes(HDP);
+template <int HDP, bool VEC>
+cudaError_t launch_f32(const repro_flash::Params& p, cudaStream_t stream) {
+  using C = F32Tile<HDP>;
+  auto* kernel = flash_tc_f32_kernel<HDP, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return err;
   const long long rows = static_cast<long long>(p.sq) * (p.hq / p.hkv);
-  const dim3 grid(static_cast<unsigned>(p.b * p.hkv),
-                  static_cast<unsigned>((rows + kRows - 1) / kRows));
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
+  const long long ctas = static_cast<long long>(p.b) * p.hkv *
+                         ((rows + C::kRows - 1) / C::kRows);
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(ctas), C::kThreads, C::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-cudaError_t launch_scalar_f32(const repro_flash::Params& p,
-                              cudaStream_t stream) {
-  if (p.hd < 1) return cudaErrorInvalidValue;
-#define REPRO_FLASH_HD(HDP) \
-  if (p.hd <= HDP) return launch_scalar<HDP>(p, stream);
-  REPRO_FLASH_HD(16)
-  REPRO_FLASH_HD(32)
-  REPRO_FLASH_HD(64)
-  REPRO_FLASH_HD(128)
-  REPRO_FLASH_HD(256)
-#undef REPRO_FLASH_HD
-  return cudaErrorInvalidValue;
+template <bool VEC>
+cudaError_t launch_f32_hd(const repro_flash::Params& p, cudaStream_t stream) {
+  // the tile layout (at<W>) needs rows of a multiple of 32 words
+  if (p.hd <= 32) return launch_f32<32, VEC>(p, stream);
+  if (p.hd <= 64) return launch_f32<64, VEC>(p, stream);
+  if (p.hd <= 128) return launch_f32<128, VEC>(p, stream);
+  return launch_f32<256, VEC>(p, stream);
+}
+
+cudaError_t launch_tc_f32(const repro_flash::Params& p, cudaStream_t stream) {
+  if (p.hd < 1 || p.hd > 256) return cudaErrorInvalidValue;
+  return rows_aligned16_f32(p) ? launch_f32_hd<true>(p, stream)
+                               : launch_f32_hd<false>(p, stream);
 }
 
 
@@ -514,12 +711,11 @@ cudaError_t launch_split_decode(const Params& p, cudaStream_t stream);
 }  // namespace repro_flash
 
 // q [b, sq, hq, hd], k/v [b, skv, hkv, hd], out [b, sq, hq, hd], all
-// contiguous; hq a multiple of hkv; 1 <= hd <= 256. route: 0 =
-// scalar_f32 (f32, ceil(sq * hq / hkv / 64) <= 65535), 1 = tc_prefill
-// (bf16), 2 = split_decode (bf16, sq * hq / hkv <= 16, n_chunks >= 1
-// and scratch of b * hkv * n_chunks * sq * (hq / hkv) * (hd + 2)
-// floats). The bf16 routes take any alignment: rows that do not all
-// start on 16 bytes load element by element. scale: the
+// contiguous; hq a multiple of hkv; 1 <= hd <= 256. route: 0 = tc_f32
+// (f32), 1 = tc_prefill (bf16), 2 = split_decode (bf16, sq * hq / hkv
+// <= 16, n_chunks >= 1 and scratch of b * hkv * n_chunks * sq *
+// (hq / hkv) * (hd + 2) floats). Every route takes any alignment: rows
+// that do not all start on 16 bytes load element by element. scale: the
 // logit scale (1 / sqrt(hd), rounded once from double as the reference
 // does); causal: 0/1; window <= 0: none; cap <= 0: no softcap; kv_len:
 // keys at positions >= kv_len are masked. Returns a CUDA error code; an
@@ -541,7 +737,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaError_t err = cudaErrorInvalidValue;
   switch (route) {
     case 0:
-      err = launch_scalar_f32(p, s);
+      err = launch_tc_f32(p, s);
       break;
     case 1:
       err = launch_tc_prefill(p, s);

@@ -79,7 +79,9 @@
 // r * W + (c ^ swz(r)), swz(r) = 8 (r & 3) + (r & 4), which makes the
 // A/B fragment loads of rows (16 rows x 4 columns) and of columns (4 rows
 // x 8 columns) free of bank conflicts and keeps every 16-byte chunk of a
-// row whole for cp.async and the FMA chains' 16-byte loads.
+// row whole for cp.async and the FMA chains' 16-byte loads. The tile
+// layout, its loads and the split products are in flash_mma.cuh, which
+// the f32 forward (flash.cu, route tc_f32) shares.
 //
 // Three launches, no atomics, every sum in a fixed order (the mma's, the
 // key tiles' and the rows' in index order, the merge of two warps' row
@@ -129,14 +131,25 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
 #include "flash_tiles.cuh"
 
 namespace {
 
-using repro_flash::cp_async16;
+using repro_flash::a_cols;
+using repro_flash::a_rows;
+using repro_flash::at;
+using repro_flash::b_cols;
+using repro_flash::b_rows;
 using repro_flash::cp_async_commit;
 using repro_flash::cp_async_wait;
-using repro_flash::smem_u32;
+using repro_flash::Frag;
+using repro_flash::Lane;
+using repro_flash::lane_of;
+using repro_flash::ld;
+using repro_flash::load_tile;
+using repro_flash::mma_add;
+using repro_flash::round_bf16;
 
 constexpr float kNegInf = -1e30f;   // the forward's mask value
 // stats and dq: rows a CTA, keys a tile, threads (8 warps)
@@ -172,15 +185,6 @@ struct BwdParams {
   int vec;        // q, k, v, out, dout rows on 16 (f32) / 8 (bf16) bytes
 };
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ float ld(const float* p, long long i) {
-  return p[i];
-}
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
-}
 __device__ __forceinline__ void st(float* p, long long i, float x) {
   p[i] = x;
 }
@@ -247,67 +251,7 @@ __device__ __forceinline__ bool logit(const BwdParams& p, float dot,
   return ok;
 }
 
-// ------------------------------------------------------ shared tiles
-
-// Row r, column c of a W-wide f32 tile (W a multiple of 32).
-__device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
-template <int W>
-__device__ __forceinline__ int at(int r, int c) {
-  return r * W + (c ^ swz(r));
-}
-
-// Rows [0, N) of a W-wide tile from rows of type T: row r's first hd
-// elements at element offset off(r); zeros past hd and from row `valid`
-// on. f32 rows on 16 bytes (`vec`) go by cp.async, 16 bytes a chunk (the
-// caller commits and waits); bf16 rows on 8 bytes by 8-byte loads; the
-// rest element by element.
-template <int W, int N, int NT, typename T, typename Off>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int valid, int hd, Off off,
-                                          bool vec) {
-  constexpr int C4 = W / 4;
-  for (int idx = threadIdx.x; idx < N * C4; idx += NT) {
-    const int r = idx / C4, c = (idx % C4) * 4;
-    float* d = dst + at<W>(r, c);
-    const bool ok = r < valid && c < hd;
-    float x[4];
-    if constexpr (sizeof(T) == 4) {
-      if (vec) {
-        cp_async16(smem_u32(d), ok ? src + off(r) + c : src, ok);
-        continue;
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        x[e] = ok && c + e < hd ? ld(src, off(r) + c + e) : 0.f;
-    } else {
-      if (vec && ok) {
-        const uint2 w = *reinterpret_cast<const uint2*>(src + off(r) + c);
-        x[0] = __uint_as_float(w.x << 16);
-        x[1] = __uint_as_float(w.x & 0xffff0000u);
-        x[2] = __uint_as_float(w.y << 16);
-        x[3] = __uint_as_float(w.y & 0xffff0000u);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          x[e] = ok && c + e < hd ? ld(src, off(r) + c + e) : 0.f;
-      }
-    }
-    *reinterpret_cast<float4*>(d) = make_float4(x[0], x[1], x[2], x[3]);
-  }
-}
-
-// ------------------------------------------------------ split products
-
-// An lane's place in an mma: g = lane / 4 (rows g, g + 8 of A and C,
-// column g of B), t = lane % 4 (columns t, t + 4 of A, rows of B; C
-// columns 2t, 2t + 1).
-struct Lane {
-  int g, t;
-};
-__device__ __forceinline__ Lane lane_of() {
-  const int l = threadIdx.x & 31;
-  return {l >> 2, l & 3};
-}
+// ------------------------------------------------------ kept logits
 
 // The kept q . k of row `row` of (bb, kvh) from key `key` on (even).
 __device__ __forceinline__ float2* dots_at(const BwdParams& p, int bb,
@@ -354,96 +298,6 @@ __device__ __forceinline__ void load_dots(const BwdParams& p, int bb,
       s[j][2 * i + 1] = x.y;
     }
   }
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// An operand fragment of N words: hi and, where SPLIT, lo (see the
-// header); without SPLIT the values are exact in TF32 and pass as they
-// are.
-template <int N, bool SPLIT>
-struct Frag {
-  uint32_t hi[N], lo[N];
-  __device__ __forceinline__ void set(const float (&x)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if constexpr (SPLIT) {
-        hi[i] = tf32(x[i]);
-        lo[i] = tf32(x[i] - __uint_as_float(hi[i]));
-      } else {
-        hi[i] = __float_as_uint(x[i]);
-      }
-    }
-  }
-};
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-// c += a b: the small terms first, then hi . hi
-template <bool SA, bool SB>
-__device__ __forceinline__ void mma_split(float (&c)[4],
-                                          const Frag<4, SA>& a,
-                                          const Frag<2, SB>& b) {
-  if constexpr (SA) mma(c, a.lo, b.hi);
-  if constexpr (SB) mma(c, a.hi, b.lo);
-  mma(c, a.hi, b.hi);
-}
-// acc += a b: one k-step's chain from zero, added into acc with
-// round-to-nearest f32 adds (see the header)
-template <bool SA, bool SB>
-__device__ __forceinline__ void mma_add(float (&acc)[4],
-                                        const Frag<4, SA>& a,
-                                        const Frag<2, SB>& b) {
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_split(d, a, b);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += d[e];
-}
-
-// Fragments at (m0 or n0, k0). a_rows / b_rows: the tile's rows are the
-// product's m (n), its columns the reduction; a_cols / b_cols: the
-// tile's rows are the reduction.
-template <int W>
-__device__ __forceinline__ void a_rows(const float* s, int m0, int k0,
-                                       float (&a)[4]) {
-  const Lane l = lane_of();
-  a[0] = s[at<W>(m0 + l.g, k0 + l.t)];
-  a[1] = s[at<W>(m0 + l.g + 8, k0 + l.t)];
-  a[2] = s[at<W>(m0 + l.g, k0 + l.t + 4)];
-  a[3] = s[at<W>(m0 + l.g + 8, k0 + l.t + 4)];
-}
-template <int W>
-__device__ __forceinline__ void a_cols(const float* s, int m0, int k0,
-                                       float (&a)[4]) {
-  const Lane l = lane_of();
-  a[0] = s[at<W>(k0 + l.t, m0 + l.g)];
-  a[1] = s[at<W>(k0 + l.t, m0 + l.g + 8)];
-  a[2] = s[at<W>(k0 + l.t + 4, m0 + l.g)];
-  a[3] = s[at<W>(k0 + l.t + 4, m0 + l.g + 8)];
-}
-template <int W>
-__device__ __forceinline__ void b_rows(const float* s, int n0, int k0,
-                                       float (&b)[2]) {
-  const Lane l = lane_of();
-  b[0] = s[at<W>(n0 + l.g, k0 + l.t)];
-  b[1] = s[at<W>(n0 + l.g, k0 + l.t + 4)];
-}
-template <int W>
-__device__ __forceinline__ void b_cols(const float* s, int n0, int k0,
-                                       float (&b)[2]) {
-  const Lane l = lane_of();
-  b[0] = s[at<W>(k0 + l.t, n0 + l.g)];
-  b[1] = s[at<W>(k0 + l.t + 4, n0 + l.g)];
 }
 
 // acc[j] += A B over the head dim for a warp's 16 rows (m0) and NJ

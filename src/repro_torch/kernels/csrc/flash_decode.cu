@@ -19,13 +19,14 @@
 // once, K and V as bf16 tiles of 64 keys through a two-stage cp.async
 // ring (16 bytes a thread; element by element where a row does not
 // start on 16 bytes, as in flash.cu). The products run on the tensor
-// cores as mma.sync m16n8k16 from ldmatrix (16 rows are one mma tile,
-// too few for wgmma's 64). Every warp computes the logits of all (up to 16)
-// rows over the tile's 64 keys and the same online softmax, and warp w
-// accumulates head-dim columns [w hd / 4, (w + 1) hd / 4) of p.v: the
-// four warps share m and l, so they write one partial (m, l, acc) in
-// f32 per row with no merge between them, to scratch [b * hkv,
-// n_chunks, rows, hd] (acc) and [b * hkv, n_chunks, rows, 2] (m, l).
+// cores as mma.sync m16n8k16 from ldmatrix (flash_mma.cuh; 16 rows are
+// one mma tile, too few for wgmma's 64). Every warp computes the logits
+// of all (up to 16) rows over the tile's 64 keys and the same online
+// softmax, and warp w accumulates head-dim columns [w hd / 4, (w + 1)
+// hd / 4) of p.v: the four warps share m and l, so they write one
+// partial (m, l, acc) in f32 per row with no merge between them, to
+// scratch [b * hkv, n_chunks, rows, hd] (acc) and [b * hkv, n_chunks,
+// rows, 2] (m, l).
 // The repeated q.k costs shared-memory reads, not device memory. A
 // chunk with no visible key writes m = -1e30, l = 0, acc = 0.
 // Pass 2 (flash_split_merge_kernel): one CTA per row, one thread per
@@ -35,6 +36,7 @@
 #include <cuda_bf16.h>
 #include <limits.h>
 
+#include "flash_mma.cuh"
 #include "flash_tiles.cuh"
 
 namespace repro_flash {
@@ -43,34 +45,6 @@ namespace {
 constexpr int kMaxRows = 16;   // rows per (batch, kv head): one mma tile
 constexpr int kWarps = 4;     // each a quarter of the head dim in p.v
 constexpr int kKeys = 64;     // keys a tile
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
-                                          uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-// d += a . b for one 16 x 8 x 16 tile (A row-major, B column-major).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // s = Q . K^T for the 16 rows of the Q tile and the kKeys keys of the
 // K tile, from ldmatrix.
@@ -95,29 +69,6 @@ __device__ __forceinline__ void qk_rows(float (&s)[kKeys / 8][4],
               b0, b1, b2, b3);
       mma_bf16(s[2 * np], a, b0, b1);
       mma_bf16(s[2 * np + 1], a, b2, b3);
-    }
-  }
-}
-
-// o += P . V[:, col0 .. col0 + COLS): P the probabilities s rounded to
-// bf16, V the tile's kKeys keys, from ldmatrix.trans.
-template <int COLS>
-__device__ __forceinline__ void pv_cols(float (&o)[COLS / 8][4],
-                                        const float (&s)[kKeys / 8][4],
-                                        uint32_t v_tile, int col0, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < kKeys / 16; ++ks) {
-    uint32_t a[4];
-    p_operand<kKeys>(a, s, ks);
-#pragma unroll
-    for (int dn = 0; dn < COLS / 16; ++dn) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4_t(v_tile + tile_off<kKeys>(ks * 16 + ((lane >> 3) & 1) * 8 +
-                                             (lane & 7),
-                                         col0 / 8 + dn * 2 + (lane >> 4)),
-                b0, b1, b2, b3);
-      mma_bf16(o[2 * dn], a, b0, b1);
-      mma_bf16(o[2 * dn + 1], a, b2, b3);
     }
   }
 }
@@ -209,7 +160,7 @@ __global__ void __launch_bounds__(SplitTile<HDP>::kThreads)
     qk_rows<HDP>(s, q_tile, stage, lane);
     softmax_tile<C::kCols, kKeys>(s, o, m, l, p, masked, qpos, key0, c_hi,
                                   lane);
-    pv_cols<C::kCols>(o, s, stage + C::kTileBytes, col0, lane);
+    pv_cols<kKeys, C::kCols>(o, s, stage + C::kTileBytes, col0, lane);
     __syncthreads();   // the stage is free for the load of tile t + 2
   }
   cp_async_wait<0>();

@@ -1,6 +1,7 @@
-// Pieces shared by the bf16 routes of flash_attention_fused (flash.cu:
-// tc_prefill; flash_decode.cu: split_decode): launch arguments, tile
-// loads, the softcap and the online softmax.
+// Pieces shared by the routes of flash_attention_fused (flash.cu:
+// tc_prefill and tc_f32; flash_decode.cu: split_decode): launch
+// arguments, the swizzled bf16 tile layout and quad reductions, and for
+// the bf16 routes the tile loads, the softcap and the online softmax.
 //
 // Tiles of bf16 rows live in shared memory HDP elements wide (HDP: the
 // head dim rounded up to 64, 128 or 256; the padding is zero), in

@@ -34,9 +34,15 @@ heads of a kv head share every K/V tile:
   each warp a quarter of the head dim); each chunk writes a partial
   (m, l, acc) to f32 scratch and a second launch merges them (the
   algorithm of :func:`repro_torch.kernels.ref.flash_attention_split_ref`).
-* ``"scalar_f32"`` (``csrc/flash.cu``): f32, the first port's kernel
-  (scalar FMAs from shared memory); TF32 tensor cores would not hold
-  the f32 tolerance.
+* ``"tc_f32"`` (``csrc/flash.cu``): f32. Bound by operations: q.k as
+  split TF32 products on the tensor cores (``mma.sync``; each f32
+  operand as two TF32 halves, three products: about f32's accuracy; a
+  single TF32 product holds the f32 check on unit-sized logits but not
+  on logits four times larger, ``tests/test_torch_flash_f32.py``), p.v
+  as an exact bf16 product of the probabilities and values the function
+  rounds to bf16; 64 rows a CTA of 8 warps, 32-key tiles, element-wise
+  loads where a row does not start on 16 bytes. A model of its
+  arithmetic is :func:`repro_torch.kernels.ref.flash_attention_tc_f32_ref`.
 
 The caller's route is the one launched; nothing falls back. Each call
 counts one launch in ``flash_attention_fused.launches`` and one in
@@ -75,14 +81,15 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
+from repro_torch.kernels.ref import (F32_ROWS, flash_attention_bwd_ref,
+                                     flash_attention_ref)
 
 BLOCK_Q = 256
 BLOCK_KV = 512
 MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
-ROUTES = ("tc_prefill", "split_decode", "scalar_f32")
-_ROUTE_CODE = {"scalar_f32": 0, "tc_prefill": 1, "split_decode": 2}
+ROUTES = ("tc_prefill", "split_decode", "tc_f32")
+_ROUTE_CODE = {"tc_f32": 0, "tc_prefill": 1, "split_decode": 2}
 # tc_prefill: (query, head) rows a CTA; a 1-D grid
 TC_ROWS_PER_CTA = 128
 MAX_GRID_X = 2 ** 31 - 1
@@ -92,19 +99,16 @@ MAX_GRID_X = 2 ** 31 - 1
 SPLIT_MAX_ROWS = 16
 SPLIT_TARGET_CTAS = 264
 SPLIT_MIN_KEYS = 128
-# scalar_f32: rows a CTA, and its grid's y limit
-SCALAR_ROWS_PER_CTA = 64
-SCALAR_MAX_GRID_Y = 65535
 
 
 def _route(b: int, sq: int, hq: int, hkv: int, hd: int, dtype) -> str:
     """The kernel route of a call on the card, from its shapes and type
-    alone: ``"scalar_f32"`` for f32; for bf16 ``"split_decode"`` when a
+    alone: ``"tc_f32"`` for f32; for bf16 ``"split_decode"`` when a
     (batch, kv head) has at most ``SPLIT_MAX_ROWS`` (query, head) rows
     (``sq * hq / hkv``), else ``"tc_prefill"``. Raises for what no route
     takes: another type (``TypeError``), a head dim outside [1, 256] or a
     grid the card cannot launch (``ValueError``). Every head dim in range
-    and every alignment is taken: the bf16 routes load rows that do not
+    and every alignment is taken: every route loads rows that do not
     start on 16 bytes element by element."""
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention_fused takes {DTYPES} on the card, "
@@ -113,10 +117,10 @@ def _route(b: int, sq: int, hq: int, hkv: int, hd: int, dtype) -> str:
         raise ValueError(f"head dim {hd} not in [1, {MAX_HEAD_DIM}]")
     rows = sq * (hq // hkv)
     if dtype == torch.float32:
-        if -(-rows // SCALAR_ROWS_PER_CTA) > SCALAR_MAX_GRID_Y:
-            raise ValueError(f"{sq} queries x {hq // hkv} heads per kv head "
-                             "exceed the f32 kernel's grid")
-        return "scalar_f32"
+        # tc_f32: F32_ROWS (query, head) rows a CTA, a 1-D grid
+        if b * hkv * -(-rows // F32_ROWS) > MAX_GRID_X:
+            raise ValueError(f"{b} x {hkv} x {rows} rows exceed the grid")
+        return "tc_f32"
     if rows <= SPLIT_MAX_ROWS:
         return "split_decode"
     if b * hkv * -(-rows // TC_ROWS_PER_CTA) > MAX_GRID_X:

@@ -553,28 +553,39 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
         return torch.autograd.grad(o, leaves, dout.to(o.dtype))
 
 
-def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(hi, lo)`` of f32 ``x`` as the backward kernel splits an operand
+def tf32_split(x: torch.Tensor, lo: str = "rna"
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of f32 ``x`` as the kernels split an operand
     (``cvt.rna.tf32.f32``): hi is x rounded to TF32's 10 mantissa bits,
     to nearest with ties away from zero (add half of the 13 dropped bits
     to the magnitude and clear them, on the int32 view), lo the same
-    rounding of ``x - hi`` (exact in f32). A bf16 value is exact in TF32:
-    its lo is 0."""
+    rounding of ``x - hi`` (exact in f32), as the backward kernel takes
+    it; with ``lo="trunc"`` lo is ``x - hi`` truncated to TF32, as the
+    tensor core reads an f32 word it is given whole (the forward's
+    ``tc_f32``). A bf16 value is exact in TF32: its lo is 0."""
     def rna(t):
         bits = t.contiguous().view(torch.int32)
         return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    def trunc(t):
+        return (t.contiguous().view(torch.int32) & -0x2000) \
+            .view(torch.float32)
+    if lo not in ("rna", "trunc"):
+        raise ValueError(f"lo {lo!r} must be 'rna' or 'trunc'")
     hi = rna(x.float())
-    return hi, rna(x.float() - hi)
+    return hi, (rna if lo == "rna" else trunc)(x.float() - hi)
 
 
-def _split_mm(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+def _split_mm(a: torch.Tensor, b: torch.Tensor, terms: int,
+              lo: str = "rna") -> torch.Tensor:
     """``a @ b`` as the tensor cores take it: with ``terms=3`` the split
     product ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` (the kernel skips the
     term of an operand whose lo is 0: a zero here), with ``terms=1`` the
     single TF32 product ``a_hi b_hi``. Each product of TF32 values is
-    exact in f32; the sums are f32."""
-    ah, al = tf32_split(a)
-    bh, bl = tf32_split(b)
+    exact in f32; the sums are f32. ``lo``: the split's lo rounding
+    (:func:`tf32_split`)."""
+    ah, al = tf32_split(a, lo)
+    bh, bl = tf32_split(b, lo)
     if terms == 1:
         return ah @ bh
     if terms != 3:
@@ -747,3 +758,85 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
     acc = (torch.stack(accs) * w[..., None]).sum(dim=0)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(b, sq, hq, hd).to(q.dtype)
+
+
+# (query, head) rows a CTA of route tc_f32 and keys a tile of it: the
+# kernel's F32Tile::kRows and kKeys (csrc/flash.cu), which the model's
+# walk must follow and flash._route sizes the grid by
+F32_ROWS = 64
+F32_KEYS = 32
+
+
+def flash_attention_tc_f32_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool,
+                               window: int | None, logit_cap: float | None,
+                               q_offset: int, kv_len: int | None = None,
+                               terms: int = 3) -> torch.Tensor:
+    """A model of the arithmetic of ``flash``'s ``tc_f32`` route in plain
+    PyTorch: rows ``s * g + h`` of each (batch, kv head) in blocks of
+    ``F32_ROWS``, each block walking the ``F32_KEYS``-key tiles some row
+    of it can see; the logits q . k as tensor-core products
+    (:func:`_split_mm`: ``terms=3`` the split TF32 product with lo given
+    to the tensor core whole, ``terms=1`` a single TF32 one), scaled,
+    softcapped through the cap's f32 reciprocal and masked (-1e30) as
+    the kernel does; the online
+    softmax tile by tile in f32, l from the unrounded p; p.v of p and v
+    rounded to bf16, summed in f32; out = acc / max(l, 1e-30). The
+    kernel sums each product over the head dim in 8-wide mma steps and
+    l per lane; here PyTorch's matmul and sum take other orders. Equal
+    to :func:`flash_attention_ref`'s function for every row that sees a
+    key; a row that sees none gives what its block's walk leaves.
+    Shapes as there; f32 out."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dev = q.device
+    n_rows = sq * g
+    key_end = skv if kv_len is None else min(kv_len, skv)
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    inv_cap = None if logit_cap is None else \
+        torch.tensor(1.0 / logit_cap, dtype=torch.float32)
+    n_tiles = -(-max(skv, 1) // F32_KEYS)
+    pad = n_tiles * F32_KEYS - skv
+    qr = (q.float().reshape(b, sq, hkv, g, hd).permute(0, 2, 1, 3, 4)
+          .reshape(b, hkv, n_rows, hd))
+    kp = F.pad(k.float().permute(0, 2, 1, 3), (0, 0, 0, pad))
+    vp = F.pad(v.float().permute(0, 2, 1, 3), (0, 0, 0, pad)) \
+        .to(torch.bfloat16).float()
+    keep = (torch.arange(n_tiles * F32_KEYS, device=dev) < key_end)
+    kp, vp = kp * keep[:, None], vp * keep[:, None]   # zero past key_end
+    out = torch.empty((b, hkv, n_rows, hd), dtype=torch.float32, device=dev)
+    for r0 in range(0, n_rows, F32_ROWS):
+        r1 = min(r0 + F32_ROWS, n_rows)
+        s_first, s_last = r0 // g, (r1 - 1) // g
+        hi = min(key_end, q_offset + s_last + 1) if causal else key_end
+        lo = max(0, q_offset + s_first - window + 1) if window else 0
+        t_lo = lo // F32_KEYS
+        t_hi = -(-hi // F32_KEYS) if hi > lo else t_lo
+        qpos = q_offset + torch.arange(r0, r1, device=dev) // g
+        m = torch.full((b, hkv, r1 - r0), -1e30, device=dev)
+        l = torch.zeros((b, hkv, r1 - r0), device=dev)
+        acc = torch.zeros((b, hkv, r1 - r0, hd), device=dev)
+        for t in range(t_lo, t_hi):
+            c0, c1 = t * F32_KEYS, (t + 1) * F32_KEYS
+            x = _split_mm(qr[:, :, r0:r1], kp[:, :, c0:c1].transpose(-1, -2),
+                          terms, lo="trunc") * scale
+            if logit_cap is not None:
+                x = logit_cap * torch.tanh(x * inv_cap)
+            kvpos = torch.arange(c0, c1, device=dev)
+            ok = (kvpos[None, :] < key_end).expand(r1 - r0, F32_KEYS)
+            if causal:
+                ok = ok & (kvpos[None, :] <= qpos[:, None])
+            if window:
+                ok = ok & (qpos[:, None] - kvpos[None, :] < window)
+            x = torch.where(ok, x, -1e30)
+            m_new = torch.maximum(m, x.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(x - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + \
+                p.to(torch.bfloat16).float() @ vp[:, :, c0:c1]
+            m = m_new
+        out[:, :, r0:r1] = acc / torch.clamp(l[..., None], min=1e-30)
+    return (out.reshape(b, hkv, sq, g, hd).permute(0, 2, 1, 3, 4)
+            .reshape(b, sq, hq, hd))

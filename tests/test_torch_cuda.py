@@ -651,12 +651,12 @@ FLASH_CASES = [
 
 
 def _expected_route(case, dtype):
-    """f32 takes the scalar kernel; bf16 the split over the cache when a
-    (batch, kv head) has at most 16 (query, head) rows, else the
-    tensor-core prefill."""
+    """f32 takes the tensor-core f32 kernel; bf16 the split over the
+    cache when a (batch, kv head) has at most 16 (query, head) rows, else
+    the tensor-core prefill."""
     _, sq, _, hq, hkv = case[:5]
     if dtype == torch.float32:
-        return "scalar_f32"
+        return "tc_f32"
     return "split_decode" if sq * (hq // hkv) <= 16 else "tc_prefill"
 
 
@@ -696,7 +696,7 @@ def test_cuda_flash_attention_equals_plain(cuda, dtype, case):
 def test_cuda_flash_takes_unaligned_tensors(cuda, dtype, case):
     """q, k and v that start one element past a 16-byte boundary (views
     into larger buffers) give the plain version's result on the route
-    their shape names: the bf16 tiles load such rows element by
+    their shape names: every route's tiles load such rows element by
     element."""
     from repro_torch.kernels import flash as t_flash
     b, sq, skv, hq, hkv, hd, causal, window, cap, q_offset, kv_len = case
@@ -718,6 +718,71 @@ def test_cuda_flash_takes_unaligned_tensors(cuda, dtype, case):
     by_route[_expected_route(case, dtype)] += 1
     assert t_flash.flash_attention_fused.launches_by_route == by_route
     _attention_close(got, t_ref.flash_attention_ref(q, k, v, **kw))
+
+
+def _f32_case(cuda, case, seed):
+    b, sq, skv, hq, hkv, hd, causal, window, cap, q_offset, kv_len = case
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda)
+               for s in ((b, sq, hq, hd), (b, skv, hkv, hd),
+                         (b, skv, hkv, hd)))
+    return q, k, v, dict(causal=causal, window=window, logit_cap=cap,
+                         q_offset=q_offset, kv_len=kv_len)
+
+
+# tc_f32 cases: gemma2 global at the training shape cut to 1024 tokens,
+# gemma2 local, a decode-like block, and ragged ones (hd 37, 80, 100)
+F32_CASES = [
+    (1, 1024, 1024, 16, 8, 256, True, None, 50.0, 0, None),
+    FLASH_CASES[6], FLASH_CASES[7], FLASH_CASES[8], FLASH_CASES[18],
+    FLASH_CASES[20],
+]
+
+
+# per element, absolute and relative: the worst of F32_CASES reads 1.7e-3
+# (H100, seed 11), the plain check's limit is 5e-3
+F32_MODEL_TOL = 3e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_CASES)
+def test_cuda_flash_f32_equals_its_model(cuda, case):
+    """The ``tc_f32`` kernel against ``ref.flash_attention_tc_f32_ref``,
+    the model of its arithmetic (split TF32 logits, 32-key tiles, bf16
+    p.v), on the same card inputs: every element within
+    ``F32_MODEL_TOL`` (one bf16 rounding of a large probability that the
+    two summation orders put on either side moves an element by up to
+    about 2^-9 |v|) and a relative L2 of at most 5e-4, 20x inside the
+    plain check's 1e-2 and above what the orders leave (at most 6.5e-5
+    here), so a fault of the kernel's tiles, masks or walk shows here
+    apart from precision. Prints its reading (under ``pytest -s``)."""
+    from repro_torch.kernels import flash as t_flash
+    q, k, v, kw = _f32_case(cuda, case, 11)
+    got = t_flash.flash_attention_ragged(q, k, v, **kw)
+    want = t_ref.flash_attention_tc_f32_ref(q, k, v, **kw)
+    diff = (got - want).abs()
+    rel_l2 = float((got - want).norm() / want.norm())
+    # the reading, printed under pytest -s
+    print(f"tc_f32 vs model {case}: max_abs {float(diff.max())!r} "
+          f"least_tol {float((diff / (1 + want.abs())).max())!r} "
+          f"rel_l2 {rel_l2!r}")
+    torch.testing.assert_close(got, want, rtol=F32_MODEL_TOL,
+                               atol=F32_MODEL_TOL)
+    assert rel_l2 <= 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [F32_CASES[0], FLASH_CASES[20]])
+def test_cuda_flash_f32_repeats_bit_equal(cuda, case):
+    """Two calls of the f32 kernel on the same inputs give the same bits
+    (every sum in a fixed order), at a gemma2 shape and a ragged one
+    (hd 37, rows that do not start on 16 bytes)."""
+    from repro_torch.kernels import flash as t_flash
+    q, k, v, kw = _f32_case(cuda, case, 12)
+    a = t_flash.flash_attention_ragged(q, k, v, **kw)
+    b = t_flash.flash_attention_ragged(q, k, v, **kw)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

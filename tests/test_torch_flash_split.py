@@ -124,7 +124,7 @@ def test_serve_routes_gemma2(batch, prompt):
     one of its 16 decode steps (query length 1 against the cache grown
     to prompt + 16; the route depends on neither the position nor the
     cache length) split over the cache into enough chunks for the
-    card; f32 on the scalar kernel."""
+    card; f32 on the tensor-core f32 kernel."""
     hq, hkv, hd = G_SHAPE
     assert t_flash._route(batch, prompt, hq, hkv, hd,
                           torch.bfloat16) == "tc_prefill"
@@ -135,7 +135,7 @@ def test_serve_routes_gemma2(batch, prompt):
     assert batch * hkv * n >= min(t_flash.SPLIT_TARGET_CTAS,
                                   batch * hkv * -(-cache // 128))
     assert t_flash._route(batch, 1, hq, hkv, hd,
-                          torch.float32) == "scalar_f32"
+                          torch.float32) == "tc_f32"
 
 
 def test_split_chunks_at_serve_shapes():
@@ -165,7 +165,7 @@ def test_route_threshold(sq, g, route):
     ((1, 1, 2, 2, 512, torch.bfloat16), ValueError),
     ((1, 1, 2, 2, 512, torch.float32), ValueError),
     ((1, 64, 2, 2, 0, torch.bfloat16), ValueError),
-    ((1, 64 * 65536, 2, 2, 64, torch.float32), ValueError),
+    ((2 ** 14, 64 * 65536, 2, 2, 64, torch.float32), ValueError),
 ])
 def test_route_rejects(args, exc):
     with pytest.raises(exc):
@@ -175,7 +175,7 @@ def test_route_rejects(args, exc):
 def test_route_takes_odd_head_dims_where_the_kernels_do():
     """Every head dim in [1, 256] has a route in both types: the bf16
     tiles take rows that are not 16-byte multiples element by element."""
-    assert t_flash._route(1, 64, 4, 2, 20, torch.float32) == "scalar_f32"
+    assert t_flash._route(1, 64, 4, 2, 20, torch.float32) == "tc_f32"
     assert t_flash._route(1, 64, 14, 2, 80, torch.bfloat16) == "tc_prefill"
     assert t_flash._route(1, 64, 4, 2, 20, torch.bfloat16) == "tc_prefill"
     assert t_flash._route(1, 1, 4, 2, 37, torch.bfloat16) == "split_decode"
@@ -186,7 +186,7 @@ def test_launches_by_route_reset_and_cpu_counts_nothing():
     t_flash.flash_attention_fused.launches_by_route["tc_prefill"] = 3
     t_kernels.reset_launch_counts()
     assert t_flash.flash_attention_fused.launches_by_route == {
-        "tc_prefill": 0, "split_decode": 0, "scalar_f32": 0}
+        "tc_prefill": 0, "split_decode": 0, "tc_f32": 0}
     q = torch.zeros((1, 1, 4, 16), dtype=torch.bfloat16)
     k = torch.zeros((1, 64, 2, 16), dtype=torch.bfloat16)
     t_flash.flash_attention_ragged(q, k, k, causal=False, q_offset=63)

@@ -289,6 +289,41 @@ def test_domain_image_resolves_nesting_before_the_pack():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_domain_image_of_nested_overlaps_indexes_no_byte(monkeypatch):
+    """Resolving nested requests builds no per-byte index: under a
+    ``repeat_index`` / ``byte_index`` that refuse more than 64 positions,
+    a nested list of 120 requests over one 4096-byte stripe (each
+    ``pack`` call a 64-byte window) still gives the reference's
+    image."""
+    from repro_torch.core import _tensor
+    limit = 64
+
+    def bounded(fn):
+        def call(*args):
+            out = fn(*args)
+            assert out.numel() <= limit, "a byte index past the limit"
+            return out
+        return call
+    monkeypatch.setattr(_tensor, "repeat_index",
+                        bounded(_tensor.repeat_index))
+    monkeypatch.setattr(_tensor, "byte_index", bounded(_tensor.byte_index))
+    monkeypatch.setattr(t_exec, "repeat_index",
+                        bounded(_tensor.repeat_index), raising=False)
+    rng = np.random.default_rng(11)
+    outer = np.arange(0, 3500, 350, dtype=np.int64)
+    offs = np.sort(np.concatenate(
+        [outer, rng.integers(0, 3500, 110)])).astype(np.int64)
+    lens = np.where(np.isin(offs, outer), 500,
+                    rng.integers(0, 40, offs.size)).astype(np.int64)
+    packed = rng.integers(1, 256, int(lens.sum())).astype(np.uint8)
+    assert lens.sum() > 20 * limit
+    want = j_exec.domain_image(offs, lens, packed, 0, 4096, 3)
+    got = t_exec.domain_image(torch.from_numpy(offs), torch.from_numpy(lens),
+                              torch.from_numpy(packed), 0, 4096, 3,
+                              window=limit)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_write_with_nested_requests_equals_the_reference(tmp_path):
     """Two ranks on one stripe, one request nested in the other's."""
     rng = np.random.default_rng(5)
