@@ -57,7 +57,20 @@ bfloat16 and uint8 payloads), then drives the main paths:
   builds its images), loses a host, restarts at ``find_restart_step``,
   restores the state byte for byte and resumes to the control's losses;
   the save's largest ``pack`` call (a 1 GiB window of a domain image)
-  is held to ``pack_ref`` exactly and timed.
+  is held to ``pack_ref`` exactly and timed;
+* serving of the moe and ssm families through the same traffic as
+  gemma2's: kimi-k2 at full width cut to one layer (384 experts of
+  d_ff 2048, top-8; ``phase_serve_moe``: the prefill on ``tc_prefill``
+  and the decode on ``split_decode`` at head dim 112, the MoE layer of
+  the long prefill against the same call on the CPU in f32, the same
+  dropped entries exactly) and mamba2-2.7b whole (``phase_serve_ssm``:
+  64 Mamba2 layers, no kernel of the port on its path), each with its
+  logits checked against a teacher-forced forward and planted faults;
+* serving from the training phase's newest checkpoint
+  (``phase_serve_restore``): ``launch.serve.restore_params`` reads it
+  through the planned collective read with the node cache and without,
+  each restored state byte for byte the saved one, and ``generate``'s
+  tokens equal to those of the state the training run ended with.
 
 Every phase prints one JSON line; any failed check raises, and the run
 exits non-zero. The line before the last lists every kernel with its
@@ -77,9 +90,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -521,11 +536,10 @@ def attention_work(torch, b, sq, hq, skv, causal, window, q_offset,
     return b * hq * int((hi - lo).clamp(min=0).sum()), keys
 
 
-def attn_err(got, want, tol: float) -> dict:
+def attn_err(got, want, tol: float, rel_l2: float = ATTN_REL_L2) -> dict:
     """Max |got - want|, the relative L2 distance, the scale of ``want``
     (its root mean square), and whether both limits hold: every element
-    within atol = rtol = ``tol`` and the distance within
-    ``ATTN_REL_L2``."""
+    within atol = rtol = ``tol`` and the distance within ``rel_l2``."""
     g, w = got.float(), want.float()
     require(g.shape == w.shape and got.dtype == want.dtype,
             f"{tuple(got.shape)} {got.dtype} vs "
@@ -535,7 +549,7 @@ def attn_err(got, want, tol: float) -> dict:
     return {"max_abs_err": float(err.max()), "rel_l2": rel,
             "rms_want": float(w.pow(2).mean().sqrt()),
             "within": bool((err <= tol + tol * w.abs()).all())
-            and rel <= ATTN_REL_L2}
+            and rel <= rel_l2}
 
 
 def attention_bound(torch, q_shape, k_shape, itemsize, causal, window,
@@ -561,15 +575,19 @@ def attention_bound(torch, q_shape, k_shape, itemsize, causal, window,
 
 
 # (name, b, sq, skv, causal, window, q_offset, kv_len, cap): gemma2-9b's
-# attention (16 query heads over 8 kv heads of 256, softcap 50) at the
-# serve phase's shapes: a global and a local prefill layer of 8192
+# attention (16 query heads over 8 kv heads of 256, softcap 50; other
+# heads in FLASH_HEADS) at the serve phase's shapes: a global and a local prefill layer of 8192
 # tokens, a decode layer at the last of 16 steps after that prefill
 # (cache 8192 + 16) at batch 4 (local) and at batch 1 (global: 672 of
 # the serve phase's launches), an odd shape that needs padding on both
 # axes, the global prefill without the softcap (the attention of
 # qwen1.5, yi and glm4), where F.scaled_dot_product_attention computes
-# the same function, and the training phase's global layer (batch 1 x
-# 4096 tokens: in f32 the shape of every forward launch of phase_train)
+# the same function, the training phase's global layer (batch 1 x 4096
+# tokens: in f32 the shape of every forward launch of phase_train), and
+# kimi-k2's attention (64 query heads over 8 kv heads of 112, no softcap
+# or window) at phase_serve_moe's shapes: its 8192 prefill (where SDPA
+# computes the same function) and a decode step at batch 1 against the
+# 8208 cache
 FLASH_CASES = (
     ("prefill_global", 1, 8192, 8192, True, None, 0, None, 50.0),
     ("prefill_window", 1, 8192, 8192, True, 4096, 0, None, 50.0),
@@ -578,7 +596,10 @@ FLASH_CASES = (
     ("odd_padded", 1, 1000, 1300, True, 4096, 300, None, 50.0),
     ("prefill_global_nocap", 1, 8192, 8192, True, None, 0, None, None),
     ("train_global", 1, 4096, 4096, True, None, 0, None, 50.0),
+    ("kimi_prefill", 1, 8192, 8192, True, None, 0, None, None),
+    ("kimi_decode_b1", 1, 1, 8208, False, None, 8207, 8208, None),
 )
+FLASH_HEADS = {"kimi_prefill": (64, 8, 112), "kimi_decode_b1": (64, 8, 112)}
 # products of hd a visible pair the f32 route issues: q.k as three TF32
 # products (the split), p.v as one bf16 product
 F32_PRODUCTS = {"tf32": 3, "bf16": 1}
@@ -710,13 +731,13 @@ def phase_flash(torch, dev, reps):
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     flush = torch.empty(1 << 25, dtype=torch.int32, device=dev)
-    hq, hkv, hd = 16, 8, 256
     recs = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         tol = ATTN_TOL[dname]
         for (name, b, sq, skv, causal, window, q_offset, kv_len,
              cap) in FLASH_CASES:
+            hq, hkv, hd = FLASH_HEADS.get(name, (16, 8, 256))
             q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
                        for s in ((b, sq, hq, hd), (b, skv, hkv, hd),
                                  (b, skv, hkv, hd)))
@@ -745,18 +766,18 @@ def phase_flash(torch, dev, reps):
             bound_ms, bound_by, pairs, keys = attention_bound(
                 torch, q.shape, k.shape, q.element_size(), causal, window,
                 q_offset, kv_len)
-            # SDPA's same function: no softcap, a plain causal mask, and
-            # bf16 (in f32 it keeps p.v in f32; the kernel rounds to bf16)
-            same_fn = cap is None and causal and window is None \
-                and q_offset == 0 and kv_eff == skv == sq \
-                and dtype == torch.bfloat16
+            # SDPA's same function: no softcap, and bf16 (in f32 it keeps
+            # p.v in f32; the kernel rounds to bf16); its masks causal or
+            # explicit (_sdpa_no_softcap)
+            same_fn = cap is None and dtype == torch.bfloat16
             sdpa_ms = time_ms(torch, _sdpa_no_softcap(
                 torch, q, k, v, causal, window, q_offset, kv_len), reps,
                 flush)
             if same_fn:
                 lib = {"library_ms": sdpa_ms,
                        "library": "F.scaled_dot_product_attention "
-                                  "(is_causal=True, enable_gqa=True)"}
+                                  "(enable_gqa=True; is_causal=True or "
+                                  "an explicit mask)"}
             rec = {"case": name, "dtype": dname, "route": route,
                    "q": list(q.shape),
                    "kv": list(k.shape), "causal": causal, "window": window,
@@ -800,6 +821,11 @@ def phase_flash(torch, dev, reps):
     return {**recs["prefill_global", "bfloat16"],
             "nocap_case": {k: nocap[k] for k in (
                 "case", "ms", "bound_ms", "library_ms", "library")},
+            "kimi_cases": [{k: recs[c, "bfloat16"][k] for k in (
+                "case", "route", "q", "kv", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library", "max_abs_err")}
+                for c in ("kimi_prefill", "kimi_decode_b1")
+                if (c, "bfloat16") in recs],
             "f32_cases": [{k: recs[c, "float32"][k] for k in (
                 "case", "route", "ms", "plain_ms", "bound_ms",
                 "max_abs_err", "achieved_tflops", "issued_tflops")}
@@ -1298,15 +1324,20 @@ def _leaves(tree):
 
 
 @contextlib.contextmanager
-def patched_attention(layers, wrap):
-    """Run the model's attention as ``wrap(attention)`` for the
-    duration."""
-    saved = layers.flash_attention
-    layers.flash_attention = wrap(saved)
+def patched(module, name, wrap):
+    """Run ``module.name`` as ``wrap(module.name)`` for the duration."""
+    saved = getattr(module, name)
+    setattr(module, name, wrap(saved))
     try:
         yield
     finally:
-        layers.flash_attention = saved
+        setattr(module, name, saved)
+
+
+def patched_attention(layers, wrap):
+    """Run the model's attention as ``wrap(attention)`` for the
+    duration."""
+    return patched(layers, "flash_attention", wrap)
 
 
 def watching(seen):
@@ -1362,11 +1393,19 @@ def logit_stats(torch, got, want, chunk=512):
             "top1_equal_share": same / got.shape[0]}
 
 
-def layer_checks(ops, ref, captured) -> None:
-    """The attention of the first local and global layer of a prefill
-    (``captured``: kind -> the call's q, k, v and keywords) through the
-    kernel and the plain version, held to the kernel phase's bf16
-    limits; the planted faults must fail them."""
+def row_rel_l2(got, want) -> list:
+    """The relative L2 distance of each row of two ``[1, R, V]`` logit
+    tensors."""
+    g, w = got[0].float(), want[0].float()
+    return ((g - w).norm(dim=-1) / w.norm(dim=-1)).tolist()
+
+
+def layer_checks(ops, ref, captured, phase="serve_layer_checks",
+                 kinds=("global", "local")) -> None:
+    """The attention of the first layer of each kind (``kinds``) of a
+    prefill (``captured``: kind -> the call's q, k, v and keywords)
+    through the kernel and the plain version, held to the kernel phase's
+    bf16 limits; the planted faults must fail them."""
     checks = {}
     tol = ATTN_TOL["bfloat16"]
     for kind, (q, k, v, kw) in sorted(captured.items()):
@@ -1378,10 +1417,9 @@ def layer_checks(ops, ref, captured) -> None:
             **attn_err(got, want, tol), "window": kw["window"],
             "planted_rel_l2": {f: c["rel_l2"] for f, c in planted.items()},
             "planted_within": {f: c["within"] for f, c in planted.items()}}
-    emit({"phase": "serve_layer_checks", "tol": tol,
-          "tol_rel_l2": ATTN_REL_L2, **checks})
-    require(set(checks) == {"global", "local"},
-            f"serve: captured layers {sorted(checks)}")
+    emit({"phase": phase, "tol": tol, "tol_rel_l2": ATTN_REL_L2, **checks})
+    require(set(checks) == set(kinds),
+            f"{phase}: captured layers {sorted(checks)}")
     for kind, c in checks.items():
         require(c["within"], f"serve {kind} layer attention: {c}")
         require(not any(c["planted_within"].values()),
@@ -1391,7 +1429,7 @@ def layer_checks(ops, ref, captured) -> None:
 def phase_serve(torch, dev):
     """Greedy serving of gemma2-9b at full width and depth (42 layers,
     bf16 weights from a seeded ``torch.Generator``), through
-    ``launch.serve.generate`` and the model's prefill / decode_step:
+    ``serve_traffic``:
 
     (a) ``generate`` at the reference CLI's defaults: batch 4, prompt
         32, 16 new tokens;
@@ -1410,140 +1448,56 @@ def phase_serve(torch, dev):
     required. The same distance for a forward whose local layers attend
     globally (a planted fault) must exceed ``SERVE_REL_L2``. Per layer, the
     attention inputs of the first local and the first global layer of
-    the long prefill go through the kernel and the plain version and
-    are held to the kernel phase's limits, which planted faults must
-    fail."""
+    the long prefill go through the kernel and the plain version (after
+    the warm-up, before the counted run) and are held to the kernel
+    phase's limits, which planted faults must fail."""
     from repro_torch import configs, kernels
-    from repro_torch.kernels import flash, ops, ref
-    from repro_torch.launch import serve
+    from repro_torch.kernels import ops, ref
     from repro_torch.models import layers
     from repro_torch.models import transformer as T
     cfg = configs.get("gemma2_9b")
     t0 = time.perf_counter()
     params = T.init_params(0, cfg, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
-    emit({"phase": "serve_setup", "config": cfg.name,
-          "layers": cfg.n_layers, "d_model": cfg.d_model,
+    emit({"phase": "serve_setup", **param_record(cfg, params),
           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-          "d_ff": cfg.d_ff, "vocab": cfg.vocab, "window": cfg.window,
-          "params": sum(t.numel() for t in _leaves(params)),
-          "param_bytes": sum(t.numel() * t.element_size()
-                             for t in _leaves(params)),
+          "d_ff": cfg.d_ff, "window": cfg.window,
           "init_s": time.perf_counter() - t0})
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    launches = {}
-
-    def synced(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3
-
-    # (a) the reference CLI's defaults
-    batch, plen, gen_len = 4, 32, 16
-    prompts = torch.randint(0, cfg.vocab, (batch, plen), generator=gen,
-                            device=dev, dtype=torch.int32)
-    serve.generate(params, cfg, prompts, gen_len)         # warm-up
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats(dev)
-    out, gen_ms = synced(lambda: serve.generate(params, cfg, prompts,
-                                                gen_len))
-    launches["generate"] = kernels.launch_counts()
-    routes_a = dict(flash.flash_attention_fused.launches_by_route)
-    require(tuple(out.shape) == (batch, gen_len + 1)
-            and bool(((out >= 0) & (out < cfg.vocab)).all()),
-            f"generate: tokens {tuple(out.shape)} out of range")
-    peak_a = torch.cuda.max_memory_allocated(dev)
-    (_, state), prefill_ms = synced(lambda: T.prefill(
-        params, cfg, {"tokens": prompts}))
-    state = serve._grow_caches(state, gen_len)
-    tok = out[:, 0]
-
-    def decode_loop(state, tok, n):
-        for _ in range(n):
-            logits, state = T.decode_step(params, cfg, state, tok)
-            tok = serve.pick(logits, cfg.vocab)
-        return state
-    _, decode_ms = synced(lambda: decode_loop(state, tok, gen_len))
-    emit({"phase": "serve", "run": "generate", "batch": batch,
-          "prompt_len": plen, "new_tokens": gen_len,
-          "generate_ms": gen_ms,
-          "tokens_per_s": batch * (gen_len + 1) / gen_ms * 1e3,
-          "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms / gen_len,
-          "decode_tokens_per_s": batch * gen_len / decode_ms * 1e3,
-          "peak_mem_bytes": peak_a, "launches": launches["generate"],
-          "flash_launches_per_generate":
-              launches["generate"]["flash_attention_fused"],
-          "flash_launches_by_route": routes_a,
-          "sample": out[0, :8].tolist()})
-    del state
-
-    # (b) a long prompt across the window, then 16 decode steps
-    plen_b = LONG_PROMPT
-    prompt = torch.randint(0, cfg.vocab, (1, plen_b), generator=gen,
-                           device=dev, dtype=torch.int32)
     captured = {}        # the first local and global layer's inputs
-    with patched_attention(layers, watching(
+
+    def watch():
+        return patched_attention(layers, watching(
             lambda q, k, v, kw: captured.setdefault(
                 "global" if kw["window"] is None else "local",
-                (q, k, v, kw)))):
-        T.prefill(params, cfg, {"tokens": prompt})        # warm-up
+                (q, k, v, kw))))
 
-    # before the counted run, so that no layer's inputs are held in it
-    layer_checks(ops, ref, captured)
-    del captured
-
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats(dev)
-    (logits_p, state), prefill_b_ms = synced(lambda: T.prefill(
-        params, cfg, {"tokens": prompt}))
-    state = serve._grow_caches(state, gen_len)
-    picked, rows = [], [logits_p]
-
-    def decode_b(state):
-        tok = serve.pick(logits_p, cfg.vocab)
-        for _ in range(gen_len):
-            picked.append(tok)
-            logits, state = T.decode_step(params, cfg, state, tok)
-            rows.append(logits)
-            tok = serve.pick(logits, cfg.vocab)
-        return state
-    _, decode_b_ms = synced(lambda: decode_b(state))
-    launches["long"] = kernels.launch_counts()
-    routes_b = dict(flash.flash_attention_fused.launches_by_route)
-    peak_b = torch.cuda.max_memory_allocated(dev)
-    del state
-    torch.cuda.empty_cache()
-    emit({"phase": "serve", "run": "long_prompt", "batch": 1,
-          "prompt_len": plen_b, "new_tokens": gen_len,
-          "prefill_ms": prefill_b_ms,
-          "prefill_tokens_per_s": plen_b / prefill_b_ms * 1e3,
-          "decode_ms_per_step": decode_b_ms / gen_len,
-          "decode_tokens_per_s": gen_len / decode_b_ms * 1e3,
-          "peak_mem_bytes": peak_b, "launches": launches["long"],
-          "flash_launches_by_route": routes_b})
+    def checks():
+        layer_checks(ops, ref, captured)
+        captured.clear()
+    traffic = serve_traffic(torch, dev, cfg, params, watch, checks)
+    rec_a, rec_b = traffic["records"]
+    for rec in (rec_a, rec_b):
+        emit({"phase": "serve", **rec})
+    gen_len, plen_b = GEN[2], LONG_PROMPT
     # every prefill layer on the tensor cores, every decode layer split
     per_run = {"tc_prefill": cfg.n_layers,
                "split_decode": gen_len * cfg.n_layers, "tc_f32": 0}
-    for run, got in (("generate", routes_a), ("long_prompt", routes_b)):
-        require(got == per_run, f"serve {run}: flash routes {got}, "
-                f"expected {per_run}")
+    for rec in (rec_a, rec_b):
+        require(rec["flash_launches_by_route"] == per_run,
+                f"serve {rec['run']}: flash routes "
+                f"{rec['flash_launches_by_route']}, expected {per_run}")
 
     # checks: decode vs forward, kernel vs plain attention
-    full = torch.cat([prompt, torch.stack(picked, dim=1)], dim=1)
-    served = torch.stack(rows, dim=1)                  # [1, 17, V]
+    full = torch.cat([traffic["prompt"], traffic["picked"]], dim=1)
     fwd, _ = T.forward(params, cfg, {"tokens": full})
-    dec_vs_fwd = logit_stats(torch, served, fwd[:, plen_b - 1:])
+    dec_vs_fwd = logit_stats(torch, traffic["served"], fwd[:, plen_b - 1:])
     require(dec_vs_fwd["rel_l2"] <= SERVE_REL_L2,
             f"decode vs forward logits: {dec_vs_fwd}")
     before = kernels.launch_counts()["flash_attention_fused"]
     with patched_attention(layers, lambda _: ref.flash_attention_ref):
         fwd_plain, _ = T.forward(params, cfg, {"tokens": full})
-        prefill_plain, _ = T.prefill(params, cfg, {"tokens": prompt})
+        prefill_plain, _ = T.prefill(params, cfg,
+                                     {"tokens": traffic["prompt"]})
     require(kernels.launch_counts()["flash_attention_fused"] == before,
             "the plain-attention runs launched the kernel")
     kern_vs_plain = logit_stats(torch, fwd, fwd_plain)
@@ -1554,7 +1508,7 @@ def phase_serve(torch, dev):
     del fwd, fwd_planted
     require(planted_vs_kern["rel_l2"] > SERVE_REL_L2,
             f"a forward with the window dropped passes: {planted_vs_kern}")
-    prefill_vs_plain = logit_stats(torch, logits_p[:, None],
+    prefill_vs_plain = logit_stats(torch, traffic["served"][:, :1],
                                    prefill_plain[:, None])
     for what, st in (("forward", kern_vs_plain),
                      ("prefill", prefill_vs_plain)):
@@ -1568,29 +1522,562 @@ def phase_serve(torch, dev):
           "planted_window_dropped_vs_kernel": planted_vs_kern,
           "ok": True})
     torch.cuda.empty_cache()
+    serve_profiles(torch, layers, cfg, params, traffic, "serve", per_run)
+    del params, traffic
+    torch.cuda.empty_cache()
+    return traffic_counts(rec_a, rec_b)
 
-    # profiles (after every count is read): where the time goes
-    emit({"phase": "profile", "method": "serve_generate",
+
+# serving of the moe and ssm families (kimi-k2, mamba2-2.7b), and of the
+# training phase's checkpoint
+GEN = (4, 32, 16)             # generate: the reference CLI's defaults
+KIMI_LAYERS = 1               # a layer's 384 experts take 33.8 GB in bf16
+MOE_TOL = 2e-2                # the MoE layer, per element: see moe_check
+MOE_CPU_CHUNK = 32            # experts copied to the host at once
+# kimi-k2's logits at depth 1 carry one layer's bf16 roundings, not the
+# 42 layers SERVE_REL_L2 allows for; and the attention adds about 3% of
+# the residual there (the embedding dominates a seeded layer), so a
+# wrong attention moves the logits by a few percent: the per-layer
+# check's distance is the limit
+KIMI_REL_L2 = ATTN_REL_L2
+
+
+def watching_moe(seen):
+    """A ``patched(layers, "moe", ...)`` wrap that hands each MoE call's
+    parameters and input to ``seen(p, x)`` and runs it unchanged."""
+    def wrap(moe):
+        def run(p, x, cfg, **kw):
+            seen(p, x)
+            return moe(p, x, cfg, **kw)
+        return run
+    return wrap
+
+
+def without_causal(attention):
+    """A planted fault: every query attends to later keys too."""
+    return lambda q, k, v, **kw: attention(q, k, v, **{**kw, "causal": False})
+
+
+def serve_traffic(torch, dev, cfg, params, watch=contextlib.nullcontext,
+                  checks=lambda: None):
+    """The serving cells of ``phase_serve`` on another model: (a)
+    ``serve.generate`` at ``GEN`` (batch 4, prompt 32, 16 new tokens),
+    then its prefill and decode loop timed apart; (b) a batch-1 prefill
+    of ``LONG_PROMPT`` tokens and 16 greedy decode steps. Each counted
+    run follows a warm-up, with every launch count set to 0 just before
+    it and read just after; (b)'s warm-up prefill runs under
+    ``watch()`` (to capture a layer's inputs), and ``checks()`` runs
+    after it, before the counted run (so that the counted run holds no
+    captured tensor). Returns the two runs' records (with their launches
+    and flash routes), the prompts, the picked tokens and the served
+    logit rows ``[1, 17, V]`` (the prefill's last row, then each decode
+    step's)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    batch, plen, gen_len = GEN
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, ms = synced(fn)
+        return out, ms, kernels.launch_counts(), dict(
+            flash.flash_attention_fused.launches_by_route), \
+            torch.cuda.max_memory_allocated(dev)
+
+    prompts = torch.randint(0, cfg.vocab, (batch, plen), generator=gen,
+                            device=dev, dtype=torch.int32)
+    serve.generate(params, cfg, prompts, gen_len)          # warm-up
+    out, gen_ms, launches_a, routes_a, peak_a = counted(
+        lambda: serve.generate(params, cfg, prompts, gen_len))
+    require(tuple(out.shape) == (batch, gen_len + 1)
+            and bool(((out >= 0) & (out < cfg.vocab)).all()),
+            f"{cfg.name} generate: tokens {tuple(out.shape)} out of range")
+    (_, state), prefill_ms = synced(lambda: T.prefill(
+        params, cfg, {"tokens": prompts}))
+    state = serve._grow_caches(state, gen_len)
+
+    def decode_loop(state, tok, n):
+        for _ in range(n):
+            logits, state = T.decode_step(params, cfg, state, tok)
+            tok = serve.pick(logits, cfg.vocab)
+        return state
+    _, decode_ms = synced(lambda: decode_loop(state, out[:, 0], gen_len))
+    del state
+    rec_a = {"run": "generate", "batch": batch, "prompt_len": plen,
+             "new_tokens": gen_len, "generate_ms": gen_ms,
+             "tokens_per_s": batch * (gen_len + 1) / gen_ms * 1e3,
+             "prefill_ms": prefill_ms,
+             "decode_ms_per_step": decode_ms / gen_len,
+             "decode_tokens_per_s": batch * gen_len / decode_ms * 1e3,
+             "peak_mem_bytes": peak_a, "launches": launches_a,
+             "flash_launches_by_route": routes_a,
+             "sample": out[0, :8].tolist()}
+
+    prompt = torch.randint(0, cfg.vocab, (1, LONG_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    with watch():
+        T.prefill(params, cfg, {"tokens": prompt})          # warm-up
+    checks()
+    picked, rows = [], []
+
+    def long_run():
+        logits, state = T.prefill(params, cfg, {"tokens": prompt})
+        rows.append(logits)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = serve._grow_caches(state, gen_len)
+        tok = serve.pick(logits, cfg.vocab)
+        for _ in range(gen_len):
+            picked.append(tok)
+            logits, state = T.decode_step(params, cfg, state, tok)
+            rows.append(logits)
+            tok = serve.pick(logits, cfg.vocab)
+        return t
+    t_dec, total_ms, launches_b, routes_b, peak_b = counted(long_run)
+    decode_b_ms = (time.perf_counter() - t_dec) * 1e3
+    rec_b = {"run": "long_prompt", "batch": 1, "prompt_len": LONG_PROMPT,
+             "new_tokens": gen_len, "prefill_ms": total_ms - decode_b_ms,
+             "prefill_tokens_per_s": LONG_PROMPT / (total_ms - decode_b_ms)
+             * 1e3, "decode_ms_per_step": decode_b_ms / gen_len,
+             "decode_tokens_per_s": gen_len / decode_b_ms * 1e3,
+             "peak_mem_bytes": peak_b, "launches": launches_b,
+             "flash_launches_by_route": routes_b}
+    torch.cuda.empty_cache()
+    return {"records": (rec_a, rec_b), "prompts": prompts, "prompt": prompt,
+            "picked": torch.stack(picked, dim=1),
+            "served": torch.stack(rows, dim=1)}
+
+
+def serve_profiles(torch, layers, cfg, params, traffic, what, per_run):
+    """The ``profile`` lines of a serving phase (after its counts are
+    read): ``generate``, the long prefill, and its 16 decode steps; the
+    prefill's and the decode's flash launches must be ``per_run``'s
+    (a run's routes) on their routes."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    prompt, gen_len = traffic["prompt"], GEN[2]
+    emit({"phase": "profile", "method": f"{what}_generate",
           **profile_serve(torch, layers, serve.generate,
-                          (params, cfg, prompts, gen_len))})
+                          (params, cfg, traffic["prompts"], gen_len))})
     prof = profile_serve(torch, layers, T.prefill,
                          (params, cfg, {"tokens": prompt}))
-    emit({"phase": "profile", "method": "serve_prefill_8192", **prof})
-    require(prof["flash_launches_by_route"]["tc_prefill"] == cfg.n_layers,
-            f"8192 prefill: {prof['flash_launches_by_route']}")
+    emit({"phase": "profile", "method": f"{what}_prefill_{LONG_PROMPT}",
+          **prof})
+    require(prof["flash_launches_by_route"]["tc_prefill"]
+            == per_run["tc_prefill"],
+            f"{what} prefill: {prof['flash_launches_by_route']}")
     _, state = T.prefill(params, cfg, {"tokens": prompt})
     state = serve._grow_caches(state, gen_len)
-    tok = picked[0]
-    prof = profile_serve(torch, layers, decode_loop, (state, tok, gen_len))
-    emit({"phase": "profile", "method": "serve_decode_16_at_8192", **prof})
+
+    def decode_loop(state, tok):
+        for _ in range(gen_len):
+            logits, state = T.decode_step(params, cfg, state, tok)
+            tok = serve.pick(logits, cfg.vocab)
+    prof = profile_serve(torch, layers, decode_loop,
+                         (state, traffic["picked"][:, 0]))
+    emit({"phase": "profile",
+          "method": f"{what}_decode_{gen_len}_at_{LONG_PROMPT}", **prof})
     require(prof["flash_launches_by_route"]["split_decode"]
-            == gen_len * cfg.n_layers,
-            f"decode at 8192: {prof['flash_launches_by_route']}")
-    del state, params
+            == per_run["split_decode"],
+            f"{what} decode: {prof['flash_launches_by_route']}")
+    del state
     torch.cuda.empty_cache()
-    return ({k: sum(c[k] for c in launches.values())
-             for k in kernels.launch_counts()},
-            {r: routes_a[r] + routes_b[r] for r in routes_a})
+
+
+def param_record(cfg, params) -> dict:
+    return {"config": cfg.name, "family": cfg.family,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab,
+            "params": sum(t.numel() for t in _leaves(params)),
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in _leaves(params))}
+
+
+def cpu_f32(torch, t, chunk):
+    """``t`` as an f32 tensor on the host: ``chunk`` rows of its first
+    axis at a time through a pinned staging buffer in ``t``'s type, then
+    converted on the host (exactly, from bf16)."""
+    out = torch.empty(t.shape, dtype=torch.float32)
+    stage = torch.empty((min(chunk, t.shape[0]), *t.shape[1:]),
+                        dtype=t.dtype, pin_memory=True)
+    for i in range(0, t.shape[0], chunk):
+        n = min(chunk, t.shape[0] - i)
+        stage[:n].copy_(t[i:i + n])
+        out[i:i + n].copy_(stage[:n])
+    return out
+
+
+def moe_check(torch, layers, cfg, p, x) -> dict:
+    """The MoE layer of the long prefill (its parameters ``p`` and input
+    ``x``, captured) on the card in bf16 against the same call,
+    ``layers.moe``, on the CPU in f32 (the weights converted exactly).
+    The routing must agree exactly: the same top-k experts for every
+    token and the same dropped (token, k) entries. The outputs: relative
+    L2 within ``ATTN_REL_L2`` (the per-layer attention check's) and
+    every element within atol = rtol = ``MOE_TOL``. That is not the
+    attention's one bf16 ulp (8e-3): the layer rounds to bf16 four times
+    in a row (h and g, the SwiGLU product, each expert's output, the
+    gated sum), and an element of the expert output sums 2048 products
+    of rounded terms; the reading against 8e-3 is printed beside. A
+    planted fault, the layer run with top-k one short (a token loses its
+    last expert and its gates renormalise), must fail the limits."""
+    import dataclasses
+    import gc
+    n, d = x.shape[0] * x.shape[1], x.shape[-1]
+    out_c, aux_c = layers.moe(p, x, cfg)
+    route_c = layers.moe_route(p, x.reshape(n, d), cfg)
+    short = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, top_k=cfg.moe.top_k - 1))
+    planted, _ = layers.moe(p, x, short)
+    t0 = time.perf_counter()
+    p_h = {k: cpu_f32(torch, v, MOE_CPU_CHUNK) for k, v in p.items()}
+    x_h = x.float().cpu()
+    convert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_h, aux_h = layers.moe(p_h, x_h, cfg)
+    cpu_s = time.perf_counter() - t0
+    route_h = layers.moe_route(p_h, x_h.reshape(n, d), cfg)
+    del p_h, x_h
+    gc.collect()
+    want = out_h.to(out_c.dtype)
+    drops_c, drops_h = route_c.dropped().cpu(), route_h.dropped()
+    got = out_c.cpu()
+    check = attn_err(got, want, MOE_TOL)
+    at_attn = attn_err(got, want, ATTN_TOL["bfloat16"])
+    fault = attn_err(planted.cpu(), want, MOE_TOL)
+    rec = {"tokens": n, "experts": cfg.moe.num_experts,
+           "top_k": cfg.moe.top_k, "capacity": route_c.cap,
+           "eids_equal": bool(torch.equal(route_c.eids.cpu(),
+                                          route_h.eids)),
+           "drops_equal": bool(torch.equal(drops_c, drops_h)),
+           "dropped": int(drops_c.sum()),
+           "tokens_with_a_drop": int(drops_c.any(-1).sum()),
+           "aux": float(aux_c), "aux_cpu_f32": float(aux_h),
+           "tol": MOE_TOL, "tol_rel_l2": ATTN_REL_L2, **check,
+           "within_attention_tol": at_attn["within"],
+           "worst_over_attention_tol": float(
+               ((got.float() - want.float()).abs()
+                / (ATTN_TOL["bfloat16"] * (1 + want.float().abs()))).max()),
+           "planted_top_k_short": {k: fault[k] for k in (
+               "max_abs_err", "rel_l2", "within")},
+           "cpu_convert_s": convert_s, "cpu_moe_s": cpu_s,
+           "cpu_threads": torch.get_num_threads()}
+    emit({"phase": "serve_moe_layer_check", **rec})
+    require(rec["eids_equal"] and rec["drops_equal"],
+            f"moe: the card's routing differs from the CPU's: {rec}")
+    require(check["within"], f"moe layer vs CPU f32: {rec}")
+    require(not fault["within"], f"moe: the planted fault passes: {rec}")
+    return rec
+
+
+def phase_serve_moe(torch, dev):
+    """Greedy serving of kimi-k2 (moe) at full width, cut to
+    ``KIMI_LAYERS`` layer: d 7168, 64 query over 8 kv heads of 112, 384
+    experts of d_ff 2048, top-8, capacity factor 1.25, vocab 163840;
+    bf16 weights from a seeded ``torch.Generator`` (38.9 GB at depth 1,
+    33.8 GB of them experts). The traffic of ``phase_serve``
+    (``serve_traffic``): generate 4 x 32 + 16, and an 8192 prefill with
+    16 decode steps; every prefill layer on ``tc_prefill``, every decode
+    layer on ``split_decode`` (required).
+
+    Checks, each failing the run: the served logits (the prefill's last
+    row, each decode step's) against teacher-forced ``forward`` logits
+    of the same tokens, relative L2 within ``KIMI_REL_L2``, on the rows
+    whose token the forward and the serving path dispatched alike (a
+    forward over 8208 tokens may drop a decoded token's entries where a
+    decode step at batch 1 drops none; those rows are left out and
+    counted); ``forward`` and the long prefill through the kernels
+    against attention forced through ``flash_attention_ref``, within the
+    same limit, where a forward whose attention drops the causal mask (a
+    planted fault) must not be; the attention of the long prefill's
+    layer against the plain version (``layer_checks``); and the MoE
+    layer of the long prefill against the same call on the CPU in f32
+    (``moe_check``). Returns the launches and flash routes of the two
+    counted runs."""
+    import dataclasses
+    from repro_torch import configs, kernels
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(configs.get("kimi_k2"), n_layers=KIMI_LAYERS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "serve_moe_setup", **param_record(cfg, params),
+          "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+          "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+          "d_ff_expert": cfg.moe.d_ff_expert,
+          "capacity_factor": cfg.moe.capacity_factor,
+          "cut": f"depth 61 -> {KIMI_LAYERS}",
+          "init_s": time.perf_counter() - t0})
+    captured, moe_in, found = {}, [], {}
+
+    @contextlib.contextmanager
+    def watch():
+        with patched_attention(layers, watching(
+                lambda q, k, v, kw: captured.setdefault(
+                    "global", (q, k, v, kw)))), \
+                patched(layers, "moe", watching_moe(
+                    lambda p, x: moe_in.append((p, x)))):
+            yield
+
+    def checks():
+        layer_checks(ops, ref, captured, "serve_moe_layer_checks",
+                     ("global",))
+        p, x = moe_in.pop()
+        found["moe"] = moe_check(torch, layers, cfg, p, x)
+        found["prefill_drops"] = layers.moe_route(
+            p, x.reshape(-1, cfg.d_model), cfg).dropped().any(-1)
+        captured.clear()
+        torch.cuda.empty_cache()
+    traffic = serve_traffic(torch, dev, cfg, params, watch, checks)
+    gen_len = GEN[2]
+    rec_a, rec_b = traffic["records"]
+    for rec in (rec_a, rec_b):
+        emit({"phase": "serve_moe", **rec})
+    per_run = {"tc_prefill": cfg.n_layers,
+               "split_decode": gen_len * cfg.n_layers, "tc_f32": 0}
+    for rec in (rec_a, rec_b):
+        require(rec["flash_launches_by_route"] == per_run,
+                f"serve_moe {rec['run']}: flash routes "
+                f"{rec['flash_launches_by_route']}, expected {per_run}")
+
+    # decode vs teacher-forced forward, on the rows dispatched alike
+    full = torch.cat([traffic["prompt"], traffic["picked"]], dim=1)
+    fwd_moe = []
+    with patched(layers, "moe", watching_moe(
+            lambda p, x: fwd_moe.append(layers.moe_route(
+                p, x.reshape(-1, cfg.d_model), cfg).dropped().any(-1)))):
+        fwd, _ = T.forward(params, cfg, {"tokens": full})
+    plen = LONG_PROMPT
+    fwd_drop = torch.stack(fwd_moe).any(0).cpu()           # [8208]
+    served_drop = torch.cat([found["prefill_drops"][-1:].cpu(),
+                             torch.zeros(gen_len, dtype=torch.bool)])
+    differs = fwd_drop[plen - 1:] != served_drop            # [17]
+    if cfg.n_layers > 1:      # a later layer's attention reads the rows
+        differs = torch.cumsum(differs, 0) > 0
+    keep = (~differs).nonzero().reshape(-1).tolist()
+    dec_vs_fwd = logit_stats(torch, traffic["served"][:, keep],
+                             fwd[:, plen - 1:][:, keep]) if keep else {}
+    before = kernels.launch_counts()["flash_attention_fused"]
+    with patched_attention(layers, lambda _: ref.flash_attention_ref):
+        fwd_plain, _ = T.forward(params, cfg, {"tokens": full})
+        prefill_plain, _ = T.prefill(params, cfg,
+                                     {"tokens": traffic["prompt"]})
+    require(kernels.launch_counts()["flash_attention_fused"] == before,
+            "the plain-attention runs launched the kernel")
+    kern_vs_plain = logit_stats(torch, fwd, fwd_plain)
+    del fwd_plain
+    with patched_attention(layers, without_causal):
+        fwd_planted, _ = T.forward(params, cfg, {"tokens": full})
+    planted_vs_kern = logit_stats(torch, fwd_planted, fwd)
+    del fwd, fwd_planted
+    prefill_vs_plain = logit_stats(torch, traffic["served"][:, :1],
+                                   prefill_plain[:, None])
+    emit({"phase": "serve_moe_checks", "tokens": list(full.shape),
+          "tol_rel_l2": KIMI_REL_L2, "rows_compared": keep,
+          "rows_left_out": gen_len + 1 - len(keep),
+          "forward_dropped_tokens": int(fwd_drop.sum()),
+          "decode_vs_forward": dec_vs_fwd,
+          "forward_kernel_vs_plain": kern_vs_plain,
+          "prefill_kernel_vs_plain": prefill_vs_plain,
+          "planted_causal_dropped_vs_kernel": planted_vs_kern,
+          "moe_layer_dropped": found["moe"]["dropped"]})
+    require(len(keep) >= 1 + gen_len // 2,
+            f"serve_moe: only rows {keep} were dispatched alike")
+    for what, st in (("decode vs forward", dec_vs_fwd),
+                     ("forward through the kernel vs plain", kern_vs_plain),
+                     ("prefill through the kernel vs plain",
+                      prefill_vs_plain)):
+        require(st["rel_l2"] <= KIMI_REL_L2, f"serve_moe {what}: {st}")
+    require(planted_vs_kern["rel_l2"] > KIMI_REL_L2,
+            f"a forward without the causal mask passes: {planted_vs_kern}")
+    torch.cuda.empty_cache()
+    serve_profiles(torch, layers, cfg, params, traffic, "serve_moe", per_run)
+    del params, traffic
+    torch.cuda.empty_cache()
+    return traffic_counts(rec_a, rec_b)
+
+
+def traffic_counts(rec_a, rec_b):
+    """The launches and flash routes of a serving phase's two counted
+    runs, summed."""
+    a, b = rec_a["launches"], rec_b["launches"]
+    ra, rb = rec_a["flash_launches_by_route"], rec_b["flash_launches_by_route"]
+    return {k: a[k] + b[k] for k in a}, {r: ra[r] + rb[r] for r in ra}
+
+
+def phase_serve_ssm(torch, dev):
+    """Greedy serving of mamba2-2.7b (ssm) whole: 64 Mamba2 layers at
+    d 2560 (d_inner 5120, 80 heads of 64, d_state 128, conv 4, SSD
+    chunks of 256), vocab 50280, bf16 weights from a seeded
+    ``torch.Generator``; the traffic of ``phase_serve``
+    (``serve_traffic``). The model is attention-free: this path launches
+    no kernel of the port (the projections are cuBLAS products, the SSD
+    scan and the conv plain PyTorch), which the run requires.
+
+    Checks, each failing the run: the served logits against
+    teacher-forced ``forward`` logits of the same tokens, relative L2
+    within ``SERVE_REL_L2`` (the forward runs over the 8208 tokens
+    followed by tokens up to a multiple of the SSD chunk, which a causal
+    model's earlier rows never see); a planted fault, the same decode
+    steps after a prefill whose SSM states were zeroed, must exceed that
+    limit; and the decode state's shapes do not depend on the history
+    (``init_decode_state`` at 8 and at 8208 positions, and the long
+    prefill's state, as ``tests/test_models.py`` holds the reference)."""
+    from repro_torch import configs
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    cfg = configs.get("mamba2_27b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    mc = cfg.mamba
+    emit({"phase": "serve_ssm_setup", **param_record(cfg, params),
+          "d_inner": mc.d_inner(cfg.d_model),
+          "ssm_heads": [mc.n_heads(cfg.d_model), mc.head_dim],
+          "d_state": mc.d_state, "d_conv": mc.d_conv, "chunk": mc.chunk,
+          "cut": "none (full width and depth)",
+          "init_s": time.perf_counter() - t0})
+    traffic = serve_traffic(torch, dev, cfg, params)
+    rec_a, rec_b = traffic["records"]
+    note = ("no TPU kernel on this path: the model is attention-free "
+            "(cuBLAS projections, plain-PyTorch SSD scan and conv)")
+    for rec in (rec_a, rec_b):
+        emit({"phase": "serve_ssm", **rec, "kernels": note})
+        require(sum(rec["launches"].values()) == 0,
+                f"serve_ssm {rec['run']}: launched {rec['launches']}")
+    gen_len, plen = GEN[2], LONG_PROMPT
+
+    full = torch.cat([traffic["prompt"], traffic["picked"]], dim=1)
+    pad = -full.shape[1] % mc.chunk
+    fwd, _ = T.forward(params, cfg, {"tokens": torch.cat(
+        [full, full[:, :pad]], dim=1)})
+    dec_vs_fwd = {**logit_stats(torch, traffic["served"],
+                                fwd[:, plen - 1:plen + gen_len]),
+                  "rows_rel_l2": row_rel_l2(traffic["served"],
+                                            fwd[:, plen - 1:plen + gen_len])}
+    del fwd
+    _, state = T.prefill(params, cfg, {"tokens": traffic["prompt"]})
+    for c in state.ssm:
+        if c is not None:
+            c[0].zero_()                           # the planted fault
+    rows = []
+    for t in range(gen_len):
+        logits, state = T.decode_step(params, cfg, state,
+                                      traffic["picked"][:, t])
+        rows.append(logits)
+    planted_rows = torch.stack(rows, dim=1)
+    planted = {**logit_stats(torch, planted_rows, traffic["served"][:, 1:]),
+               "rows_rel_l2": row_rel_l2(planted_rows,
+                                         traffic["served"][:, 1:])}
+    long_shapes = [tuple(x.shape[2:]) for c in state.ssm for x in c]
+    del state, rows
+
+    def shapes(max_seq):
+        st = T.init_decode_state(cfg, 1, max_seq, device=dev)
+        return [tuple(x.shape[2:]) for c in st.ssm for x in c]
+    invariant = shapes(8) == shapes(plen + gen_len) == long_shapes
+    emit({"phase": "serve_ssm_checks", "tokens": list(full.shape),
+          "forward_tokens": full.shape[1] + pad,
+          "tol_rel_l2": SERVE_REL_L2, "decode_vs_forward": dec_vs_fwd,
+          "planted_ssm_state_zeroed_vs_served": planted,
+          "state_shapes": long_shapes,
+          "state_shapes_history_invariant": invariant})
+    require(dec_vs_fwd["rel_l2"] <= SERVE_REL_L2,
+            f"serve_ssm decode vs forward logits: {dec_vs_fwd}")
+    require(planted["rows_rel_l2"][0] > SERVE_REL_L2,
+            f"serve_ssm: a decode without its SSM state passes: {planted}")
+    require(invariant, "serve_ssm: the decode state's shapes depend on the "
+            "history")
+    torch.cuda.empty_cache()
+    serve_profiles(torch, layers, cfg, params, traffic, "serve_ssm",
+                   {"tc_prefill": 0, "split_decode": 0})
+    del params, traffic
+    torch.cuda.empty_cache()
+    return traffic_counts(rec_a, rec_b)
+
+
+def phase_serve_restore(torch, dev, trained):
+    """Serving from the training phase's newest checkpoint (the step-4
+    state of the resumed run): ``serve.restore_params`` on the serving
+    host layout (8 readers on 2 nodes, the manifest's striping) reads
+    the whole state ``{"params", "opt"}`` through the planned collective
+    read, once with the node cache and once without; then
+    ``serve.generate`` (4 x 32 + 16, the f32 gemma2 at the training
+    phase's depth, every attention on ``tc_f32``) from each restore's
+    parameters. Checks: each restored state's device digest equals the
+    digest of the state that save wrote, the step is the save's, and the
+    tokens of both restores equal those generated from the state the run
+    ended with. Prints each restore's wall, peak memory and every
+    ``IOTimings`` field. The restore launches no kernel of the port (the
+    read gathers its windows by spans; ``pack`` builds the images of a
+    save); its launches are the generates' attention. Returns them and
+    their routes."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash
+    from repro_torch.launch import serve
+    cfg, batch, plen, gen_len = trained["cfg"], *GEN
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (batch, plen), generator=gen,
+                            device=dev, dtype=torch.int32)
+    serve.generate(trained["params"], cfg, prompts, gen_len)   # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    want = serve.generate(trained["params"], cfg, prompts, gen_len)
+    del trained["params"]
+    torch.cuda.empty_cache()
+    runs = []
+    for node_cache in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, step, timings = serve.restore_params(
+            trained["dir"], trained["like"], node_cache=node_cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        equal = state_digest(torch, state) == trained["digest"]
+        got = serve.generate(state["params"], cfg, prompts, gen_len)
+        runs.append({"node_cache": node_cache, "step": step,
+                     "wall_s": wall, "peak_mem_bytes": peak,
+                     "restored_equals_saved": equal,
+                     "tokens_equal_saved_state": bool(torch.equal(got,
+                                                                  want)),
+                     "timings": timings_dict(timings)})
+        del state, got
+        torch.cuda.empty_cache()
+    launches = kernels.launch_counts()
+    routes = dict(flash.flash_attention_fused.launches_by_route)
+    emit({"phase": "serve_restore", "config": cfg.name,
+          "layers": cfg.n_layers, "param_dtype": "float32",
+          "checkpoint_step": trained["step"], "readers": [8, 2],
+          "batch": batch, "prompt_len": plen, "new_tokens": gen_len,
+          "restores": runs, "sample": want[0, :8].tolist(),
+          "launches": launches, "flash_launches_by_route": routes})
+    for r in runs:
+        require(r["step"] == trained["step"] and r["restored_equals_saved"],
+                f"serve_restore: the restored state differs: {r}")
+        require(r["tokens_equal_saved_state"],
+                f"serve_restore: generate's tokens differ: {r}")
+    require(routes["tc_f32"] == launches["flash_attention_fused"] > 0,
+            f"serve_restore: attention off the tc_f32 route: {routes}")
+    return launches, routes
 
 
 def run_measured(torch, dev, fn, args):
@@ -2205,7 +2692,7 @@ def state_digest(torch, tree, chunk=1 << 26):
     return out
 
 
-def phase_train(torch, dev):
+def phase_train(torch, dev, tmp):
     """Training with checkpoint and restart on the card, through
     ``launch.train.build_training`` (the reference CLI's objects):
     gemma2-9b at full width cut to ``TRAIN_LAYERS`` layers, f32
@@ -2237,10 +2724,12 @@ def phase_train(torch, dev):
     on the positions whose label is not the input token (with tied
     embeddings the input token's own logit, softcapped near 30,
     dominates a seeded model's partition function). Returns the
-    launches, the attention launches by route and the ``pack`` case."""
+    launches, the attention launches by route, the ``pack`` case, and
+    what ``phase_serve_restore`` serves from: the faulty run's checkpoint
+    directory under ``tmp`` (left in place), a like tree of the state,
+    the digest of its newest save, and the parameters the resumed run
+    ended with."""
     import dataclasses
-    import shutil
-    import tempfile
     from repro_torch import configs, kernels
     from repro_torch._tree import leaves, tree_map
     from repro_torch.kernels import flash, ref
@@ -2256,8 +2745,6 @@ def phase_train(torch, dev):
         e = torch.cuda.Event(enable_timing=True)
         e.record()
         marks.append((what, e))
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
 
     def fresh(sub, every, hook=None):
         return build_training(
@@ -2310,156 +2797,156 @@ def phase_train(torch, dev):
             return timings
         mgr.save = run
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    control = fresh("control", 10 ** 9, mark)
+    n_params = sum(p.numel() for p in leaves(control.params))
+    # the seeded model's logits: kernels vs plain attention, and the
+    # loss where the label is not the input token
+    batch0 = control.data.batch_at(0)
+    with torch.no_grad():
+        logits_k, _ = T.forward(control.params, cfg, batch0)
+        with patched_attention(layers, lambda _: ref.flash_attention_ref):
+            logits_p, _ = T.forward(control.params, cfg, batch0)
+        vs_plain = logit_stats(torch, logits_k, logits_p)
+        lab = batch0["labels"][..., None].long()
+        nll_p = torch.logsumexp(logits_p, -1) - torch.take_along_dim(
+            logits_p, lab, -1)[..., 0]
+        del logits_p
+        nll = torch.logsumexp(logits_k, -1) - torch.take_along_dim(
+            logits_k, lab, -1)[..., 0]
+        del logits_k
+        other = batch0["labels"] != batch0["tokens"]
+        nll_other = float(nll[other].mean())
+        loss0_eval, loss0_plain = float(nll.mean()), float(nll_p.mean())
+        del nll, nll_p
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    loop_c = control.loop()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_c, o_c, _ = loop_c.run(*take(control))
+    torch.cuda.synchronize()
+    control_wall = time.perf_counter() - t0
+    losses_c = list(loop_c.losses)
+    digest_c = state_digest(torch, {"params": p_c, "opt": o_c})
+    steps_ms = []
+    for i in range(0, len(marks), 4):
+        (_, a), (_, f), (_, bw), (_, o) = marks[i:i + 4]
+        steps_ms.append({"forward_ms": a.elapsed_time(f),
+                         "backward_ms": f.elapsed_time(bw),
+                         "optimizer_ms": bw.elapsed_time(o),
+                         "step_ms": a.elapsed_time(o)})
+    phase_peak = torch.cuda.max_memory_allocated(dev)
+    emit({"phase": "train", "run": "control", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "params": n_params,
+          "param_dtype": "float32",
+          "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+          "steps": TRAIN_STEPS, "wall_s": control_wall,
+          "losses": losses_c, "steps_ms": steps_ms,
+          "peak_mem_bytes": phase_peak,
+          "logits_kernel_vs_plain": vs_plain,
+          "loss_seeded": loss0_eval, "loss_seeded_plain": loss0_plain,
+          "loss_label_not_input": nll_other,
+          "ln_vocab": math.log(cfg.vocab),
+          "label_is_input_share": 1.0 - float(other.float().mean())})
+    del p_c, o_c, control, loop_c
+    torch.cuda.empty_cache()
+
+    # the faulty run: save at TRAIN_FAIL_AFTER, lose a host, restart
+    faulty = fresh("faulty", TRAIN_FAIL_AFTER)
+    timed_saves(faulty.ckpt)
+    monitor = HeartbeatMonitor(n_hosts=2, timeout_s=1e9)
+
+    def on_step(step, loss):
+        if step == TRAIN_FAIL_AFTER:
+            monitor.inject_failure(1)
+
+    loop_f = faulty.loop(monitor)
+    # restore takes the structure and each leaf's device from this
+    like = tree_map(lambda t: torch.empty(0, device=t.device),
+                    {"params": faulty.params, "opt": faulty.opt_state})
+    failed = None
     try:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        t_phase = time.perf_counter()
-        control = fresh("control", 10 ** 9, mark)
-        n_params = sum(p.numel() for p in leaves(control.params))
-        # the seeded model's logits: kernels vs plain attention, and the
-        # loss where the label is not the input token
-        batch0 = control.data.batch_at(0)
-        with torch.no_grad():
-            logits_k, _ = T.forward(control.params, cfg, batch0)
-            with patched_attention(layers, lambda _: ref.flash_attention_ref):
-                logits_p, _ = T.forward(control.params, cfg, batch0)
-            vs_plain = logit_stats(torch, logits_k, logits_p)
-            lab = batch0["labels"][..., None].long()
-            nll_p = torch.logsumexp(logits_p, -1) - torch.take_along_dim(
-                logits_p, lab, -1)[..., 0]
-            del logits_p
-            nll = torch.logsumexp(logits_k, -1) - torch.take_along_dim(
-                logits_k, lab, -1)[..., 0]
-            del logits_k
-            other = batch0["labels"] != batch0["tokens"]
-            nll_other = float(nll[other].mean())
-            loss0_eval, loss0_plain = float(nll.mean()), float(nll_p.mean())
-            del nll, nll_p
-        torch.cuda.empty_cache()
-        kernels.reset_launch_counts()
-        loop_c = control.loop()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        p_c, o_c, _ = loop_c.run(*take(control))
-        torch.cuda.synchronize()
-        control_wall = time.perf_counter() - t0
-        losses_c = list(loop_c.losses)
-        digest_c = state_digest(torch, {"params": p_c, "opt": o_c})
-        steps_ms = []
-        for i in range(0, len(marks), 4):
-            (_, a), (_, f), (_, bw), (_, o) = marks[i:i + 4]
-            steps_ms.append({"forward_ms": a.elapsed_time(f),
-                             "backward_ms": f.elapsed_time(bw),
-                             "optimizer_ms": bw.elapsed_time(o),
-                             "step_ms": a.elapsed_time(o)})
-        phase_peak = torch.cuda.max_memory_allocated(dev)
-        emit({"phase": "train", "run": "control", "arch": cfg.name,
-              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-              "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "params": n_params,
-              "param_dtype": "float32",
-              "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
-              "steps": TRAIN_STEPS, "wall_s": control_wall,
-              "losses": losses_c, "steps_ms": steps_ms,
-              "peak_mem_bytes": phase_peak,
-              "logits_kernel_vs_plain": vs_plain,
-              "loss_seeded": loss0_eval, "loss_seeded_plain": loss0_plain,
-              "loss_label_not_input": nll_other,
-              "ln_vocab": math.log(cfg.vocab),
-              "label_is_input_share": 1.0 - float(other.float().mean())})
-        del p_c, o_c, control, loop_c
-        torch.cuda.empty_cache()
-
-        # the faulty run: save at TRAIN_FAIL_AFTER, lose a host, restart
-        faulty = fresh("faulty", TRAIN_FAIL_AFTER)
-        timed_saves(faulty.ckpt)
-        monitor = HeartbeatMonitor(n_hosts=2, timeout_s=1e9)
-
-        def on_step(step, loss):
-            if step == TRAIN_FAIL_AFTER:
-                monitor.inject_failure(1)
-
-        loop_f = faulty.loop(monitor)
-        # restore takes the structure and each leaf's device from this
-        like = tree_map(lambda t: torch.empty(0, device=t.device),
-                        {"params": faulty.params, "opt": faulty.opt_state})
-        failed = None
-        try:
-            loop_f.run(*take(faulty), on_step=on_step)
-        except RuntimeError as exc:
-            failed = str(exc)
-        require(failed is not None and "host failure" in failed,
-                f"train: the lost host did not stop the loop ({failed})")
-        losses_f = list(loop_f.losses)
-        start = find_restart_step(faulty.ckpt.directory)
-        require(start == TRAIN_FAIL_AFTER,
-                f"train: find_restart_step gave {start}")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        state, step, r_timings = faulty.ckpt.restore(like, start,
-                                                     with_timings=True)
-        torch.cuda.synchronize()
-        restore = {"wall_s": time.perf_counter() - t0,
-                   "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-                   "timings": timings_dict(r_timings)}
-        torch.cuda.empty_cache()
-        restored_equal = state_digest(torch, state) == saves[0]["digest"]
-        require(step == start and restored_equal,
-                "train: the restored state differs from the saved one")
-        loop_r = faulty.loop()
-        final = []
-        torch.cuda.reset_peak_memory_stats(dev)
-        prof = profile_write(torch, lambda: final.append(loop_r.run(
-            state["params"], state["opt"], start_step=start)), ())
-        losses_r = list(loop_r.losses)
-        launches = kernels.launch_counts()
-        routes = dict(flash.flash_attention_fused.launches_by_route)
-        require(bool(pack_case), "train: no pack call to hold to pack_ref")
-        launches["pack"] -= pack_case["check_launches"]
-        phase_peak = max([phase_peak, restore["peak_mem_bytes"],
-                          torch.cuda.max_memory_allocated(dev)]
-                         + [sv["peak_mem_bytes"] for sv in saves])
-        del state
-        p_r, o_r, _ = final.pop()
-        digest_r = state_digest(torch, {"params": p_r, "opt": o_r})
-        del p_r, o_r
-        resumed = losses_f + losses_r
-        bit_equal = resumed == losses_c
-        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses_c)) \
-            if len(resumed) == len(losses_c) else math.inf
-        emit({"phase": "train", "run": "faulty_and_resumed",
-              "failure": failed, "restart_step": start,
-              "losses_before_failure": losses_f, "losses_resumed": losses_r,
-              "losses_control": losses_c, "losses_bit_equal": bit_equal,
-              "max_rel_diff": rel,
-              "final_state_bit_equal_control": digest_r == digest_c,
-              "saves": [{k: v for k, v in sv.items() if k != "digest"}
-                        for sv in saves],
-              "saves_note": "the save after the restart ran under the "
-                            "profiler (resumed_profile)",
-              "restore": restore, "restored_equals_saved": restored_equal,
-              "resumed_profile": prof, "launches": launches,
-              "flash_launches_by_route": routes,
-              "phase_peak_mem_bytes": phase_peak,
-              "phase_wall_s": time.perf_counter() - t_phase})
-        require(len(resumed) == len(losses_c) and rel <= TRAIN_LOSS_REL,
-                f"train: resumed losses {resumed} vs control {losses_c}")
-        require(math.isfinite(losses_c[0]) and abs(
-            losses_c[0] - loss0_plain) <= TRAIN_LOSS_REL * abs(loss0_plain),
-            f"train: first loss {losses_c[0]} vs the plain attention's "
-            f"{loss0_plain}")
-        require(vs_plain["rel_l2"] <= SERVE_REL_L2,
-                f"train: logits through the kernels vs plain: {vs_plain}")
-        for k in ("pack", "flash_attention_fused", "flash_attention_bwd"):
-            require(launches[k] > 0, f"train: {k} never launched")
-        require(sum(routes.values()) == launches["flash_attention_fused"],
-                f"train: flash routes {routes} vs {launches}")
-        require(routes["tc_f32"] == launches["flash_attention_fused"],
-                f"train: f32 attention off the tc_f32 route: {routes}")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-        torch.cuda.empty_cache()
-    return launches, routes, pack_case
+        loop_f.run(*take(faulty), on_step=on_step)
+    except RuntimeError as exc:
+        failed = str(exc)
+    require(failed is not None and "host failure" in failed,
+            f"train: the lost host did not stop the loop ({failed})")
+    losses_f = list(loop_f.losses)
+    start = find_restart_step(faulty.ckpt.directory)
+    require(start == TRAIN_FAIL_AFTER,
+            f"train: find_restart_step gave {start}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, step, r_timings = faulty.ckpt.restore(like, start,
+                                                 with_timings=True)
+    torch.cuda.synchronize()
+    restore = {"wall_s": time.perf_counter() - t0,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+               "timings": timings_dict(r_timings)}
+    torch.cuda.empty_cache()
+    restored_equal = state_digest(torch, state) == saves[0]["digest"]
+    require(step == start and restored_equal,
+            "train: the restored state differs from the saved one")
+    loop_r = faulty.loop()
+    final = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    prof = profile_write(torch, lambda: final.append(loop_r.run(
+        state["params"], state["opt"], start_step=start)), ())
+    losses_r = list(loop_r.losses)
+    launches = kernels.launch_counts()
+    routes = dict(flash.flash_attention_fused.launches_by_route)
+    require(bool(pack_case), "train: no pack call to hold to pack_ref")
+    launches["pack"] -= pack_case["check_launches"]
+    phase_peak = max([phase_peak, restore["peak_mem_bytes"],
+                      torch.cuda.max_memory_allocated(dev)]
+                     + [sv["peak_mem_bytes"] for sv in saves])
+    del state
+    p_r, o_r, _ = final.pop()
+    digest_r = state_digest(torch, {"params": p_r, "opt": o_r})
+    del o_r
+    resumed = losses_f + losses_r
+    bit_equal = resumed == losses_c
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses_c)) \
+        if len(resumed) == len(losses_c) else math.inf
+    emit({"phase": "train", "run": "faulty_and_resumed",
+          "failure": failed, "restart_step": start,
+          "losses_before_failure": losses_f, "losses_resumed": losses_r,
+          "losses_control": losses_c, "losses_bit_equal": bit_equal,
+          "max_rel_diff": rel,
+          "final_state_bit_equal_control": digest_r == digest_c,
+          "saves": [{k: v for k, v in sv.items() if k != "digest"}
+                    for sv in saves],
+          "saves_note": "the save after the restart ran under the "
+                        "profiler (resumed_profile)",
+          "restore": restore, "restored_equals_saved": restored_equal,
+          "resumed_profile": prof, "launches": launches,
+          "flash_launches_by_route": routes,
+          "phase_peak_mem_bytes": phase_peak,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    require(len(resumed) == len(losses_c) and rel <= TRAIN_LOSS_REL,
+            f"train: resumed losses {resumed} vs control {losses_c}")
+    require(math.isfinite(losses_c[0]) and abs(
+        losses_c[0] - loss0_plain) <= TRAIN_LOSS_REL * abs(loss0_plain),
+        f"train: first loss {losses_c[0]} vs the plain attention's "
+        f"{loss0_plain}")
+    require(vs_plain["rel_l2"] <= SERVE_REL_L2,
+            f"train: logits through the kernels vs plain: {vs_plain}")
+    for k in ("pack", "flash_attention_fused", "flash_attention_bwd"):
+        require(launches[k] > 0, f"train: {k} never launched")
+    require(sum(routes.values()) == launches["flash_attention_fused"],
+            f"train: flash routes {routes} vs {launches}")
+    require(routes["tc_f32"] == launches["flash_attention_fused"],
+            f"train: f32 attention off the tc_f32 route: {routes}")
+    torch.cuda.empty_cache()
+    trained = {"cfg": cfg, "dir": faulty.ckpt.directory, "like": like,
+               "digest": saves[-1]["digest"], "step": saves[-1]["step"],
+               "params": p_r}
+    return launches, routes, pack_case, trained
 
 
 def main() -> int:
@@ -2511,11 +2998,24 @@ def main() -> int:
     hosted, pack_rec = phase_host(torch, dev, REPS)
     phase_mp(torch, dev)
     served, served_routes = phase_serve(torch, dev)
+    moe, moe_routes = phase_serve_moe(torch, dev)
+    ssm, ssm_routes = phase_serve_ssm(torch, dev)
     measured["flash_attention_bwd"] = phase_train_kernel(torch, dev, REPS)
-    trained, trained_routes, train_pack = phase_train(torch, dev)
-    launches = {k: launches[k] + patterns[k] + hosted[k] + served[k]
-                + trained[k] for k in launches}
-    routes = {r: served_routes[r] + trained_routes[r] for r in served_routes}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        trained, trained_routes, train_pack, ckpt = phase_train(torch, dev,
+                                                                tmp)
+        restored, restored_routes = phase_serve_restore(torch, dev, ckpt)
+        del ckpt
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    runs = (served, moe, ssm, trained, restored)
+    launches = {k: launches[k] + patterns[k] + hosted[k]
+                + sum(r[k] for r in runs) for k in launches}
+    routes = {r: sum(rr[r] for rr in (served_routes, moe_routes, ssm_routes,
+                                      trained_routes, restored_routes))
+              for r in served_routes}
     require(sum(routes.values()) == launches["flash_attention_fused"],
             f"flash routes {routes} vs {launches['flash_attention_fused']}")
     # pack's line: its largest shape, a window of a training save's
@@ -2531,6 +3031,7 @@ def main() -> int:
         "kernel_route": flash_rec["route"],
         "library": flash_rec["library"],
         "nocap_case": flash_rec["nocap_case"],
+        "kimi_cases": flash_rec["kimi_cases"],
         "f32_cases": flash_rec["f32_cases"],
         "launches_by_route": routes},
         "pack": {"path": "a training save's domain image (phase_train)",
@@ -2539,8 +3040,9 @@ def main() -> int:
                  "plain_chunk": train_pack["plain_chunk"],
                  "host_case": {k: pack_rec[k] for k in case_keys},
                  "window_case": {k: window_case[k] for k in case_keys}}}
-    require(served["flash_attention_fused"] > 0,
-            "serve: flash_attention_fused never launched")
+    for what, n in (("serve", served), ("serve_moe", moe)):
+        require(n["flash_attention_fused"] > 0,
+                f"{what}: flash_attention_fused never launched")
     bwd_rec = measured["flash_attention_bwd"]
     extra["flash_attention_bwd"] = {
         "path": "training (phase_train): every backward of every layer",

@@ -43,7 +43,10 @@ def make_train_step(cfg: ModelConfig, opt, lr: float | Callable = 3e-4,
         live = [p.detach().requires_grad_(True) for p in leaves(params)]
         loss = T.loss_fn(unflatten(params, live), cfg, batch, remat=remat)
         mark("forward")
-        grads = torch.autograd.grad(loss, live)
+        # a leaf the loss does not read (mamba2's ln2: no MLP follows)
+        # gets a zero gradient, as jax.grad gives it
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            live, torch.autograd.grad(loss, live, allow_unused=True))]
         mark("backward")
         rate = lr(opt_state["step"]) if callable(lr) else lr
         with torch.no_grad():

@@ -1,21 +1,25 @@
-"""Model building blocks of the dense LM: norms, RoPE, softcap,
-attention and the SwiGLU MLP (the port of the dense part of the
-reference's ``models/layers.py``).
+"""Model building blocks: norms, RoPE, softcap, attention, the SwiGLU
+MLP, top-k MoE and the Mamba2 SSD block (the port of the reference's
+``models/layers.py``).
 
 Pure functions over explicit parameter dicts, as in the reference. The
 reference threads a ``ShardingPlan`` through every layer; on one device
-its ``constrain`` is the identity and its sharded decode
-(``decode_attention_sharded``) does not apply, so the port has neither.
+its ``constrain`` is the identity and its mesh paths (the sharded decode
+``decode_attention_sharded``, the MoE's ``moe_sharded``) do not apply,
+so the port has none of them (``moe`` asked for a mesh raises).
 Attention on a CUDA tensor runs the Hopper kernel through
 ``kernels.ops.fused_attention`` (and, where an input requires grad, its
 backward kernel in the backward pass); on a CPU tensor it runs the plain
 version, ``kernels.ref.flash_attention_ref``, which autograd
-differentiates. The dense matrix products
-are ``torch.einsum`` calls, as the reference leaves them to XLA.
+differentiates. The dense matrix products are ``torch.einsum`` calls,
+as the reference leaves them to XLA; so are the MoE's dispatch (a
+stable sort, prefix sums, index writes and gathers) and the SSD scan,
+which the reference writes in ``jnp`` with no Pallas kernel.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -177,3 +181,283 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = torch.einsum("bsd,df->bsf", x, p["wi"])
     g = torch.einsum("bsd,df->bsf", x, p["wg"])
     return torch.einsum("bsf,fd->bsd", F.silu(g) * h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k, sort-based dispatch with capacity dropping)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
+             lead: tuple = ()) -> dict:
+    """The router in f32 ``[d, E]`` and the experts' SwiGLU weights
+    ``[E, d, f]`` / ``[E, f, d]``, as the reference's ``init_moe``."""
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
+    return {
+        "router": _normal(gen, (*lead, d, e), torch.float32,
+                          1.0 / math.sqrt(d)),
+        "wi": _normal(gen, (*lead, e, d, f), dtype, 1.0 / math.sqrt(d)),
+        "wg": _normal(gen, (*lead, e, d, f), dtype, 1.0 / math.sqrt(d)),
+        "wo": _normal(gen, (*lead, e, f, d), dtype, 1.0 / math.sqrt(f)),
+    }
+
+
+class MoERoute(NamedTuple):
+    """One MoE call's routing: ``gates`` and ``eids`` ``[N, k]`` (each
+    token's top-k experts, ties to the lower index, gates renormalised),
+    the load-balancing ``aux`` loss, ``order`` (the stable sort of the
+    flattened ``(token, k)`` entries by expert), ``ok`` (in that sorted
+    order: the entry fits its expert's ``cap`` slots) and ``slot`` (its
+    row of the ``[E * cap]`` dispatch buffer; ``E * cap`` for a dropped
+    entry)."""
+    gates: torch.Tensor
+    eids: torch.Tensor
+    aux: torch.Tensor
+    order: torch.Tensor
+    ok: torch.Tensor
+    slot: torch.Tensor
+    cap: int
+
+    def dropped(self) -> torch.Tensor:
+        """``[N, k]`` bool: the (token, k) entries over capacity."""
+        out = torch.empty_like(self.ok)
+        out[self.order] = ~self.ok
+        return out.reshape(self.eids.shape)
+
+
+def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert: ``ceil(N k / E x capacity_factor)`` rounded up
+    to a multiple of 8, at least 8 (the reference's, in Python floats)."""
+    m = cfg.moe
+    cap = int(math.ceil(n_tokens * m.top_k / m.num_experts
+                        * m.capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_route(p: dict, xt: torch.Tensor, cfg: ModelConfig) -> MoERoute:
+    """The router and the dispatch plan of ``_moe_dense`` for tokens
+    ``xt`` ``[N, d]``: router logits and softmax in f32; top-k by a
+    stable descending sort, so equal probabilities pick the lower expert
+    id as ``lax.top_k`` does (``torch.topk`` promises no tie order); the
+    Switch-style aux loss; then the group-by-destination of TAM's request
+    bucketing: entries sorted stably by expert, their position within
+    the expert from an exclusive prefix sum of the counts, and entries at
+    or past ``cap`` dropped (they keep the first ``cap`` of each expert in
+    flattened (token, k) order)."""
+    m = cfg.moe
+    n = xt.shape[0]
+    e, k = m.num_experts, m.top_k
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)        # [N, E]
+    gates, eids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eids = gates[:, :k], eids[:, :k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    # load-balancing aux loss (Switch-style)
+    me = probs.mean(dim=0)
+    ce = torch.zeros(e, dtype=torch.float32, device=xt.device).index_add_(
+        0, eids.reshape(-1), torch.full((n * k,), 1.0 / (n * k),
+                                        dtype=torch.float32,
+                                        device=xt.device))
+    aux = e * torch.sum(me * ce)
+
+    cap = moe_capacity(n, cfg)
+    flat_e = eids.reshape(-1)                                      # [N*k]
+    ranked, order = torch.sort(flat_e, stable=True)
+    counts = torch.bincount(flat_e, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(n * k, device=xt.device) - starts[ranked]
+    ok = pos < cap
+    slot = torch.where(ok, ranked * cap + pos, e * cap)
+    return MoERoute(gates, eids, aux, order, ok, slot, cap)
+
+
+def moe(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh=None):
+    """Top-k MoE -> ``(out, aux)``. The reference's mesh path (the
+    explicitly partitioned dispatch of ``moe_sharded.py``) is not
+    ported: one device runs the dense dispatch, and a mesh raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "moe: the sharded dispatch (the reference's moe_sharded.py) "
+            "is not ported; the port runs one device, without a mesh")
+    return _moe_dense(p, x, cfg)
+
+
+def _moe_dense(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Sort-based top-k MoE with capacity dropping (the reference's
+    single-device path): the routing of :func:`moe_route`, each kept
+    entry's token row written to its expert's slot of an ``[E, cap, d]``
+    buffer, the experts' SwiGLU as three batched products, and each
+    token's k outputs gathered back and weighted by its gates. The
+    reference writes dropped entries out of bounds with ``mode="drop"``;
+    here they go to a spare last row that is sliced off, so nothing is
+    written out of bounds and the card needs no host sync. Returns
+    ``(out, aux)``."""
+    m = cfg.moe
+    b, s, d = x.shape
+    e, k = m.num_experts, m.top_k
+    n = b * s
+    xt = x.reshape(n, d)
+    r = moe_route(p, xt, cfg)
+    cap = r.cap
+    rows = xt[r.order // k]                                     # [N*k, d]
+    disp = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    disp[r.slot] = rows
+    disp = disp[:e * cap].reshape(e, cap, d)
+    h = torch.einsum("ecd,edf->ecf", disp, p["wi"])
+    g = torch.einsum("ecd,edf->ecf", disp, p["wg"])
+    eo = torch.einsum("ecf,efd->ecd", F.silu(g) * h, p["wo"])
+    # combine: gather each token's k expert outputs, weight by the gates
+    inv_slot = torch.empty_like(r.slot)
+    inv_slot[r.order] = r.slot
+    eo_pad = torch.cat([eo.reshape(e * cap, d),
+                        torch.zeros((1, d), dtype=eo.dtype,
+                                    device=eo.device)])
+    per_tok = eo_pad[inv_slot].reshape(n, k, d)
+    out = (per_tok * r.gates[..., None].to(per_tok.dtype)).sum(dim=1)
+    return out.reshape(b, s, d), r.aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD)
+# ---------------------------------------------------------------------------
+
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
+               lead: tuple = ()) -> dict:
+    """Split projections (``wx``, ``wz``, ``wbcdt``), the depthwise conv,
+    f32 ``A_log`` (zeros), ``D`` (ones), ``dt_bias`` and ``norm`` (zeros),
+    and ``out_proj``, as the reference's ``init_mamba``."""
+    mc = cfg.mamba
+    d = cfg.d_model
+    di, ds, nh = mc.d_inner(d), mc.d_state, mc.n_heads(d)
+    sc = 1.0 / math.sqrt(d)
+
+    def const(n, value):
+        return torch.full((*lead, n), value, dtype=torch.float32,
+                          device=gen.device)
+    return {
+        "wx": _normal(gen, (*lead, d, di), dtype, sc),
+        "wz": _normal(gen, (*lead, d, di), dtype, sc),
+        "wbcdt": _normal(gen, (*lead, d, 2 * ds + nh), dtype, sc),
+        "conv": _normal(gen, (*lead, mc.d_conv, di + 2 * ds), dtype, 0.1),
+        "A_log": const(nh, 0.0),
+        "D": const(nh, 1.0),
+        "dt_bias": const(nh, 0.0),
+        "norm": const(di, 0.0),
+        "out_proj": _normal(gen, (*lead, di, d), dtype, 1.0 / math.sqrt(di)),
+    }
+
+
+def _ssd_chunked(xh, dt, A, B_, C_, chunk: int):
+    """SSD (state-space duality) forward, chunked, in f32.
+
+    xh: [B, S, nh, hd]; dt: [B, S, nh]; A: [nh] (negative); B_, C_:
+    [B, S, ds]. Returns (y [B, S, nh, hd], final state [B, nh, ds, hd]).
+    The reference scans the chunk states with ``lax.scan``; a Python loop
+    over the chunks gives each chunk the state before it."""
+    b, s, nh, hd = xh.shape
+    ds = B_.shape[-1]
+    nc = s // chunk
+    xc = xh.reshape(b, nc, chunk, nh, hd).float()
+    dtc = dt.reshape(b, nc, chunk, nh)
+    Bc = B_.reshape(b, nc, chunk, ds)
+    Cc = C_.reshape(b, nc, chunk, ds)
+    a = dtc * A[None, None, None, :]                    # [b,nc,L,nh] (<=0)
+    cum = torch.cumsum(a, dim=2)                        # within-chunk
+
+    # intra-chunk (masked "attention" in log space). exp of -inf where
+    # i < j: the reference's where(causal, exp(seg), 0), whose masked
+    # exp may overflow, which autograd would turn into NaN gradients
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [b,nc,Li,Lj,nh]
+    il = torch.arange(chunk, device=xh.device)
+    causal = (il[:, None] >= il[None, :])[None, None, :, :, None]
+    decay = torch.exp(torch.where(causal, seg, -torch.inf))
+    del seg
+    cb = torch.einsum("bnis,bnjs->bnij", Cc, Bc)        # [b,nc,Li,Lj]
+    m = decay * cb[..., None] * dtc[:, :, None, :, :]   # [b,nc,Li,Lj,nh]
+    del decay
+    y_intra = torch.einsum("bnijh,bnjhd->bnihd", m, xc)
+    del m
+
+    # chunk states: S_n = sum_j exp(cum_last - cum_j) dt_j B_j x_j
+    last = cum[:, :, -1:, :]                            # [b,nc,1,nh]
+    w = torch.exp(last - cum) * dtc                     # [b,nc,L,nh]
+    states = torch.einsum("bnlh,bnls,bnlhd->bnhsd", w, Bc, xc)
+    chunk_decay = torch.exp(last[:, :, 0, :])           # [b,nc,nh]
+
+    st = torch.zeros((b, nh, ds, hd), dtype=torch.float32, device=xh.device)
+    prev = []
+    for c in range(nc):
+        prev.append(st)                                 # the state before
+        st = st * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)              # [b,nc,nh,ds,hd]
+
+    # inter-chunk: y_i += C_i . (exp(cum_i) * prev_state)
+    y_inter = torch.einsum("bnls,bnlh,bnhsd->bnlhd", Cc, torch.exp(cum),
+                           prev_states)
+    y = (y_intra + y_inter).reshape(b, s, nh, hd)
+    return y, st
+
+
+def _depthwise_conv(window: torch.Tensor, w: torch.Tensor, s: int):
+    """The causal depthwise conv of the reference: a Python sum over the
+    taps, ``window`` holding ``d_conv - 1`` earlier positions before the
+    ``s`` new ones."""
+    return sum(window[:, i:i + s] * w[i][None, None, :]
+               for i in range(w.shape[0]))
+
+
+def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                state: tuple | None = None):
+    """Mamba2 SSD block. ``state=(ssm_state [B, nh, ds, hd] f32,
+    conv_state [B, d_conv - 1, di + 2 ds])`` runs single-token decode;
+    None the full sequence, which must divide into SSD chunks (a
+    ``ValueError`` otherwise: the reference asserts it). Returns
+    ``(out, new_state)``; the full sequence's new state is the handoff to
+    decode (the final SSM state and the conv tail, zero-padded in front
+    for a prompt shorter than ``d_conv - 1``)."""
+    mc = cfg.mamba
+    b, s, d = x.shape
+    di, ds, nh = mc.d_inner(d), mc.d_state, mc.n_heads(d)
+    hd = mc.head_dim
+    xin = torch.einsum("bsd,de->bse", x, p["wx"])
+    z = torch.einsum("bsd,de->bse", x, p["wz"])
+    bcdt = torch.einsum("bsd,de->bse", x, p["wbcdt"])
+    B_, C_, dt = torch.split(bcdt, [ds, ds, nh], dim=-1)
+    conv_in = torch.cat([xin, B_, C_], dim=-1)           # [b,s,di+2ds]
+    dt_s = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+
+    if state is None:
+        chunk = min(mc.chunk, s)
+        if s % chunk:
+            raise ValueError(f"seq {s} must divide into SSD chunks of "
+                             f"{mc.chunk}")
+        pad = F.pad(conv_in, (0, 0, mc.d_conv - 1, 0))
+        conv = F.silu(_depthwise_conv(pad, p["conv"], s))
+        xin, B_, C_ = torch.split(conv, [di, ds, ds], dim=-1)
+        xh = xin.reshape(b, s, nh, hd)
+        y, final_ssm = _ssd_chunked(xh, dt_s, A, B_.float(), C_.float(),
+                                    chunk)
+        y = y + p["D"][None, None, :, None] * xh.float()
+        # state handoff for prefill -> decode continuation
+        tail = conv_in[:, s - (mc.d_conv - 1):] if s >= mc.d_conv - 1 \
+            else F.pad(conv_in, (0, 0, mc.d_conv - 1 - s, 0))
+        new_state = (final_ssm, tail)
+    else:
+        ssm_state, conv_state = state                   # decode: s == 1
+        window = torch.cat([conv_state, conv_in], dim=1)
+        conv = F.silu(_depthwise_conv(window, p["conv"], 1))
+        xin, B_, C_ = torch.split(conv, [di, ds, ds], dim=-1)
+        xh = xin.reshape(b, 1, nh, hd).float()
+        dec = torch.exp(dt_s[:, 0, :] * A[None, :])     # [b,nh]
+        upd = torch.einsum("bh,bs,bhd->bhsd", dt_s[:, 0, :],
+                           B_[:, 0].float(), xh[:, 0])
+        ssm_state = ssm_state * dec[..., None, None] + upd
+        y = torch.einsum("bs,bhsd->bhd", C_[:, 0].float(),
+                         ssm_state)[:, None]
+        y = y + p["D"][None, None, :, None] * xh
+        new_state = (ssm_state, window[:, 1:])
+    y = y.reshape(b, s, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    return torch.einsum("bse,ed->bsd", y, p["out_proj"]), new_state

@@ -1,19 +1,23 @@
-"""Decoder-only dense LM: parameters, forward, loss, prefill and decode
-(the port of the dense family of the reference's
-``models/transformer.py``).
+"""Decoder-only LMs of the dense, moe, ssm and hybrid families:
+parameters, forward, loss, prefill and decode (the port of the
+reference's ``models/transformer.py``).
 
 Layer stacking follows the reference: layers are grouped into
 super-blocks of ``cfg.block_period`` layers (gemma2's local/global
-alternation gives 2), and each position-in-period ("slot") holds its
-parameters stacked on a leading ``n_blocks`` axis. The reference scans
-over blocks with ``lax.scan``; the port runs a Python loop over them,
+alternation gives 2, jamba's one attention layer in 8 gives 8), and each
+position-in-period ("slot") holds its parameters stacked on a leading
+``n_blocks`` axis. A layer is attention or a Mamba2 block, then an MLP,
+a top-k MoE or nothing (mamba2 has no MLP). The reference scans over
+blocks with ``lax.scan``; the port runs a Python loop over them,
 indexing the stacked tensors (views, no copies). Decode writes the
-stacked KV caches in place, one position per step. ``loss_fn`` is the
-training objective; its gradient comes from autograd, the attention's
-from the backward kernel on the card (``kernels.flash.FlashAttention``).
+stacked caches in place, one position per step: an attention slot's KV
+cache, and a Mamba slot's SSM and conv states. ``loss_fn`` is the
+training objective (cross-entropy plus 0.01 x the MoE layers' summed
+aux loss); its gradient comes from autograd, the attention's from the
+backward kernel on the card (``kernels.flash.FlashAttention``).
 
-Only the ``dense`` family is ported; moe, ssm, hybrid, audio (enc-dec)
-and vlm raise ``NotImplementedError`` (ROADMAP queue 1, item 11).
+The audio (enc-dec) and vlm families are not ported: their configs
+raise ``NotImplementedError`` (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -30,13 +34,14 @@ from repro_torch.models.config import ModelConfig
 Params = dict
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet."""
-    if cfg.family != "dense":
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise for a config the port does not run yet: an encoder-decoder
+    or one with a modality frontend (audio, vlm)."""
+    if cfg.enc_dec or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported; the port "
-            "serves dense LMs (moe, ssm, hybrid, audio and vlm: ROADMAP "
-            "queue 1, item 11)")
+            "runs the dense, moe, ssm and hybrid LMs (the enc-dec audio "
+            "and vlm families: ROADMAP queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -44,26 +49,36 @@ def require_dense(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_slot(gen: torch.Generator, cfg: ModelConfig, n_blocks: int,
-               dtype) -> Params:
-    """One slot's parameters, stacked on a leading n_blocks axis."""
+def _init_slot(gen: torch.Generator, cfg: ModelConfig, j: int,
+               n_blocks: int, dtype) -> Params:
+    """Slot ``j``'s parameters, stacked on a leading n_blocks axis: the
+    reference's ``_init_layer`` (the period makes a slot's layers all of
+    one kind)."""
     lead = (n_blocks,)
     norm = torch.zeros((n_blocks, cfg.d_model), dtype=torch.float32,
                        device=gen.device)
-    return {"ln1": norm, "ln2": norm.clone(),
-            "attn": L.init_attention(gen, cfg, dtype, lead),
-            "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead)}
+    p: Params = {"ln1": norm, "ln2": norm.clone()}
+    if cfg.is_attn_layer(j):
+        p["attn"] = L.init_attention(gen, cfg, dtype, lead)
+    else:
+        p["mamba"] = L.init_mamba(gen, cfg, dtype, lead)
+    if cfg.is_moe_layer(j):
+        p["moe"] = L.init_moe(gen, cfg, dtype, lead)
+    elif cfg.d_ff:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead)
+    return p
 
 
 def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
                 device=None) -> Params:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``,
     in the reference's tree: ``embed``, ``final_norm``,
-    ``blocks["slots"][j]`` (``ln1``, ``ln2``, ``attn``, ``mlp``), and
-    ``unembed`` unless the embeddings are tied. The numbers differ from
-    the reference's (another generator); ``weights.params_from_numpy``
-    carries the reference's own."""
-    require_dense(cfg)
+    ``blocks["slots"][j]`` (``ln1``, ``ln2``, ``attn`` or ``mamba``,
+    ``moe`` or ``mlp`` where the layer has one), and ``unembed`` unless
+    the embeddings are tied. The numbers differ from the reference's
+    (another generator); ``weights.params_from_numpy`` carries the
+    reference's own."""
+    require_ported(cfg)
     if cfg.n_layers % cfg.block_period:
         raise ValueError(
             f"{cfg.name}: n_layers {cfg.n_layers} not divisible by "
@@ -78,8 +93,8 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
                            0.02),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                   device=gen.device),
-        "blocks": {"slots": [_init_slot(gen, cfg, n_blocks, dtype)
-                             for _ in range(cfg.block_period)]},
+        "blocks": {"slots": [_init_slot(gen, cfg, j, n_blocks, dtype)
+                             for j in range(cfg.block_period)]},
     }
     if not cfg.tie_embeddings:
         p["unembed"] = L._normal(gen, (cfg.padded_vocab, cfg.d_model), dtype,
@@ -93,10 +108,15 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
 
 
 class DecodeState(NamedTuple):
-    """Per-slot caches stacked [n_blocks, B, S, Hkv, hd]. The
-    reference's ``ssm`` and ``enc_out`` fields belong to families the
-    port does not run yet."""
-    kv: Any           # list per slot: (k, v)
+    """Per-slot caches stacked on a leading n_blocks axis. An attention
+    slot has ``kv[j] = (k, v)`` ``[n_blocks, B, S, Hkv, hd]`` and
+    ``ssm[j] = None``; a Mamba slot has ``kv[j] = None`` and ``ssm[j] =
+    (ssm_state [n_blocks, B, nh, ds, hd] f32, conv_state [n_blocks, B,
+    d_conv - 1, di + 2 ds])``, whose shapes do not depend on the
+    history. The reference's ``enc_out`` belongs to the enc-dec family,
+    which the port does not run."""
+    kv: Any           # list per slot: (k, v) or None
+    ssm: Any          # list per slot: (ssm_state, conv_state) or None
     pos: int          # next write position
 
 
@@ -109,67 +129,107 @@ def _block_params(tree, i: int):
 
 def _apply_layer(pl_, x, cfg, i_in_period, positions, cache=None,
                  cache_pos=None):
-    """One layer (attention + mlp). Returns (x, new_cache)."""
+    """One layer (attention-or-mamba, then mlp-or-moe). ``cache`` is the
+    layer's ``(kv, ssm)`` pair in decode, else None. Returns (x,
+    new_cache, aux): new_cache is ``((k, v), None)`` or ``(None,
+    (ssm_state, conv_state))``, aux the MoE's aux loss (None without a
+    MoE)."""
     h = L.rms_norm(x, pl_["ln1"], cfg.norm_eps)
-    a, new_cache = L.attention(pl_["attn"], h, cfg, positions,
-                               local=cfg.is_local_layer(i_in_period),
-                               cache=cache, cache_pos=cache_pos)
+    if "attn" in pl_:
+        a, kv = L.attention(pl_["attn"], h, cfg, positions,
+                            local=cfg.is_local_layer(i_in_period),
+                            cache=None if cache is None else cache[0],
+                            cache_pos=cache_pos)
+        new_cache = (kv, None)
+    else:
+        a, ssm = L.mamba_block(pl_["mamba"], h, cfg,
+                               state=None if cache is None else cache[1])
+        new_cache = (None, ssm)
     x = x + a
-    h2 = L.rms_norm(x, pl_["ln2"], cfg.norm_eps)
-    return x + L.mlp(pl_["mlp"], h2), new_cache
+    aux = None
+    if "moe" in pl_:
+        mo, aux = L.moe(pl_["moe"], L.rms_norm(x, pl_["ln2"], cfg.norm_eps),
+                        cfg)
+        x = x + mo
+    elif "mlp" in pl_:
+        x = x + L.mlp(pl_["mlp"], L.rms_norm(x, pl_["ln2"], cfg.norm_eps))
+    return x, new_cache, aux
+
+
+def _add_aux(total, aux):
+    return total if aux is None else (aux if total is None else total + aux)
 
 
 def _super_block(slots, bi: int, x, cfg, positions):
-    """The layers of super-block ``bi`` (no caches)."""
+    """The layers of super-block ``bi`` (no caches) -> (x, aux or
+    None)."""
+    aux = None
     for j in range(len(slots)):
-        x, _ = _apply_layer(_block_params(slots[j], bi), x, cfg, j, positions)
-    return x
+        x, _, a = _apply_layer(_block_params(slots[j], bi), x, cfg, j,
+                               positions)
+        aux = _add_aux(aux, a)
+    return x, aux
+
+
+def _stacked_like(n_blocks: int, t: torch.Tensor) -> torch.Tensor:
+    return torch.empty((n_blocks, *t.shape), dtype=t.dtype, device=t.device)
 
 
 def _run_blocks(blocks, x, cfg, positions,
                 decode_state: DecodeState | None = None,
                 collect_caches: bool = False, remat: bool = False):
-    """Loop over super-blocks. Returns (x, new_decode_state).
+    """Loop over super-blocks. Returns (x, new_decode_state, aux): aux
+    is the MoE layers' summed aux loss, or None for a model without MoE
+    layers.
 
     With ``decode_state`` each layer writes its slice of the stacked
-    caches in place; with ``collect_caches`` the prefill's keys and
-    values are written into newly allocated stacked caches. ``remat``
-    (training, no caches) recomputes each super-block in the backward
-    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
-    of its scanned block."""
+    caches in place (KV at ``pos``; the SSM and conv states replaced);
+    with ``collect_caches`` the prefill's keys and values, and its SSM
+    and conv handoff states, are written into newly allocated stacked
+    caches. ``remat`` (training, no caches) recomputes each super-block
+    in the backward (``torch.utils.checkpoint``), as the reference's
+    ``jax.checkpoint`` of its scanned block."""
     slots = blocks["slots"]
     period = len(slots)
     n_blocks = slots[0]["ln1"].shape[0]
+    aux = None
     if remat and decode_state is None and not collect_caches:
         for bi in range(n_blocks):
-            x = torch.utils.checkpoint.checkpoint(
+            x, a = torch.utils.checkpoint.checkpoint(
                 _super_block, slots, bi, x, cfg, positions,
                 use_reentrant=False)
-        return x, None
-    caches = [None] * period
+            aux = _add_aux(aux, a)
+        return x, None, aux
+    kv, ssm = [None] * period, [None] * period
     if decode_state is not None:
-        caches = decode_state.kv
+        kv, ssm = decode_state.kv, decode_state.ssm
     for bi in range(n_blocks):
         for j in range(period):
             layer_cache = None
             if decode_state is not None:
-                layer_cache = (caches[j][0][bi], caches[j][1][bi])
-            x, (k, v) = _apply_layer(
+                layer_cache = tuple(None if c[j] is None else
+                                    (c[j][0][bi], c[j][1][bi])
+                                    for c in (kv, ssm))
+            x, new_cache, a = _apply_layer(
                 _block_params(slots[j], bi), x, cfg, j, positions,
                 cache=layer_cache,
                 cache_pos=None if decode_state is None else decode_state.pos)
-            if collect_caches:
+            aux = _add_aux(aux, a)
+            if decode_state is None and not collect_caches:
+                continue
+            for caches, pair in zip((kv, ssm), new_cache):
+                if pair is None or (caches is kv and decode_state is not None):
+                    continue    # decode attention wrote its KV in place
                 if caches[j] is None:
-                    caches[j] = tuple(
-                        torch.empty((n_blocks, *t.shape), dtype=t.dtype,
-                                    device=t.device) for t in (k, v))
-                caches[j][0][bi] = k
-                caches[j][1][bi] = v
+                    caches[j] = tuple(_stacked_like(n_blocks, t)
+                                      for t in pair)
+                caches[j][0][bi] = pair[0]
+                caches[j][1][bi] = pair[1]
     if decode_state is not None:
-        return x, decode_state._replace(pos=decode_state.pos + 1)
+        return x, decode_state._replace(pos=decode_state.pos + 1), aux
     if collect_caches:
-        return x, DecodeState(kv=caches, pos=x.shape[1])
-    return x, None
+        return x, DecodeState(kv=kv, ssm=ssm, pos=x.shape[1]), aux
+    return x, None, aux
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -191,15 +251,17 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params, cfg: ModelConfig, batch: dict, remat: bool = False):
-    """Full-sequence forward -> (logits [B, S, V], aux loss). A dense LM
-    has no aux loss: it is 0."""
-    require_dense(cfg)
+    """Full-sequence forward -> (logits [B, S, V], aux loss): the MoE
+    layers' aux losses summed, or an f32 zero for a model without
+    them."""
+    require_ported(cfg)
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
-    x, _ = _run_blocks(params["blocks"], x, cfg, _positions(b, s, x.device),
-                       remat=remat)
-    return (_logits(params, cfg, x),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    x, _, aux = _run_blocks(params["blocks"], x, cfg,
+                            _positions(b, s, x.device), remat=remat)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, cfg, x), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = False):
@@ -225,29 +287,46 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = False):
 
 def init_decode_state(cfg: ModelConfig, batch_size: int, max_seq: int,
                       dtype=torch.bfloat16, device=None) -> DecodeState:
-    require_dense(cfg)
+    """Zero caches for ``batch_size`` sequences of up to ``max_seq``
+    positions: KV in ``dtype`` for attention slots; for Mamba slots the
+    SSM state in f32 and the conv state in ``dtype``, both independent
+    of ``max_seq``."""
+    require_ported(cfg)
     dev = resolve_device(device)
     n_blocks = cfg.n_layers // cfg.block_period
-    shape = (n_blocks, batch_size, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    kv = [(torch.zeros(shape, dtype=dtype, device=dev),
-           torch.zeros(shape, dtype=dtype, device=dev))
-          for _ in range(cfg.block_period)]
-    return DecodeState(kv=kv, pos=0)
+    kv, ssm = [], []
+    for j in range(cfg.block_period):
+        if cfg.is_attn_layer(j):
+            shape = (n_blocks, batch_size, max_seq, cfg.n_kv_heads,
+                     cfg.head_dim)
+            kv.append((torch.zeros(shape, dtype=dtype, device=dev),
+                       torch.zeros(shape, dtype=dtype, device=dev)))
+            ssm.append(None)
+        else:
+            mc = cfg.mamba
+            di, ds = mc.d_inner(cfg.d_model), mc.d_state
+            nh, hd = mc.n_heads(cfg.d_model), mc.head_dim
+            kv.append(None)
+            ssm.append((torch.zeros((n_blocks, batch_size, nh, ds, hd),
+                                    dtype=torch.float32, device=dev),
+                        torch.zeros((n_blocks, batch_size, mc.d_conv - 1,
+                                     di + 2 * ds), dtype=dtype, device=dev)))
+    return DecodeState(kv=kv, ssm=ssm, pos=0)
 
 
 def decode_step(params, cfg: ModelConfig, state: DecodeState,
                 tokens: torch.Tensor):
     """One decode step. tokens: [B] int. Returns (logits [B, V], state).
 
-    The caches of ``state`` are written in place (position
-    ``state.pos``); the returned state holds the same caches with
-    ``pos + 1``."""
-    require_dense(cfg)
+    The caches of ``state`` are written in place (KV at position
+    ``state.pos``, the SSM and conv states replaced); the returned state
+    holds the same caches with ``pos + 1``."""
+    require_ported(cfg)
     x = params["embed"][tokens][:, None, :] * math.sqrt(cfg.d_model)
     positions = torch.full((x.shape[0], 1), state.pos, dtype=torch.int32,
                            device=x.device)
-    x, new_state = _run_blocks(params["blocks"], x, cfg, positions,
-                               decode_state=state)
+    x, new_state, _ = _run_blocks(params["blocks"], x, cfg, positions,
+                                  decode_state=state)
     return _logits(params, cfg, x)[:, 0], new_state
 
 
@@ -255,11 +334,13 @@ def prefill(params, cfg: ModelConfig, batch: dict):
     """Full-sequence forward that also builds the decode caches.
 
     Returns (last-token logits [B, V], DecodeState with kv caches of
-    length S and pos = S) — the serving prefill step.
+    length S, the SSM and conv handoff states, and pos = S) — the
+    serving prefill step.
     """
-    require_dense(cfg)
+    require_ported(cfg)
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
-    x, state = _run_blocks(params["blocks"], x, cfg,
-                           _positions(b, s, x.device), collect_caches=True)
+    x, state, _ = _run_blocks(params["blocks"], x, cfg,
+                              _positions(b, s, x.device),
+                              collect_caches=True)
     return _logits(params, cfg, x[:, -1:])[:, 0], state

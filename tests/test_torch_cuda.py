@@ -647,6 +647,8 @@ FLASH_CASES = [
     (2, 1, 700, 8, 4, 100, False, None, 30.0, 650, 651),      # hd 100: split
     (1, 130, 130, 6, 3, 37, True, None, None, 0, None),       # hd 37: tc
     (3, 2, 500, 8, 2, 37, True, 200, 50.0, 400, 450),         # hd 37: split
+    (1, 256, 512, 64, 8, 112, True, None, None, 256, None),   # kimi-k2: tc
+    (2, 1, 700, 64, 8, 112, False, None, None, 650, 651),     # kimi-k2: split
 ]
 
 
@@ -692,7 +694,7 @@ def test_cuda_flash_attention_equals_plain(cuda, dtype, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [FLASH_CASES[6], FLASH_CASES[11],
-                                  FLASH_CASES[-2], FLASH_CASES[-1]])
+                                  FLASH_CASES[20], FLASH_CASES[21]])
 def test_cuda_flash_takes_unaligned_tensors(cuda, dtype, case):
     """q, k and v that start one element past a 16-byte boundary (views
     into larger buffers) give the plain version's result on the route
@@ -866,6 +868,84 @@ def test_cuda_serve_matches_cpu_serve(cuda):
         lg, sg = T.decode_step(params_gpu, cfg, sg, tokens[:, t].to(cuda))
         lc, sc = T.decode_step(params, cfg, sc, tokens[:, t])
         torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+
+
+FAMILIES = ["kimi_k2", "mamba2_27b", "jamba_15_large"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_cuda_family_serve_matches_cpu_serve(cuda, arch):
+    """Reduced kimi-k2 (moe), mamba2-2.7b (ssm) and jamba-1.5 (hybrid)
+    in f32: the card's forward (logits and aux loss), prefill and eight
+    teacher-forced decode steps give the CPU's logits within 2e-3 (the
+    CPU tests' model tolerance); generate runs on the card, its
+    attention (kimi-k2, jamba) through the flash kernel."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash as t_flash
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import reduced
+    cfg = reduced(configs.get(arch))
+    params = T.init_params(0, cfg, dtype=torch.float32, device="cpu")
+    params_gpu = _to(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 16)).astype(np.int32))
+    lg, ag = T.forward(params_gpu, cfg, {"tokens": tokens.to(cuda)})
+    lc, ac = T.forward(params, cfg, {"tokens": tokens})
+    torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(ag.cpu(), ac, rtol=2e-3, atol=2e-3)
+    before = t_flash.flash_attention_fused.launches
+    out = serve.generate(params_gpu, cfg, tokens[:, :8].to(cuda), 4)
+    assert out.shape == (2, 5)
+    assert (t_flash.flash_attention_fused.launches > before) == \
+        (cfg.family != "ssm")
+    lg, sg = T.prefill(params_gpu, cfg, {"tokens": tokens[:, :8].to(cuda)})
+    lc, sc = T.prefill(params, cfg, {"tokens": tokens[:, :8]})
+    torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+    sg, sc = serve._grow_caches(sg, 8), serve._grow_caches(sc, 8)
+    for t in range(8, 16):
+        lg, sg = T.decode_step(params_gpu, cfg, sg, tokens[:, t].to(cuda))
+        lc, sc = T.decode_step(params, cfg, sc, tokens[:, t])
+        torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_decode_state_of_a_period_of_8(cuda):
+    """Reduced jamba-1.5's decode state on the card: slot 0 of its period
+    of 8 holds a KV cache, slots 1 to 7 SSM and conv states of the same
+    shapes at any cache length; after a prefill and four decode steps
+    each slot's tensors equal the CPU's within 2e-3."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import reduced
+    cfg = reduced(configs.get("jamba_15_large"))
+    assert cfg.block_period == 8
+    st = T.init_decode_state(cfg, 2, 24, device=cuda)
+    assert [c is not None for c in st.kv] == [True] + [False] * 7
+    assert [c is not None for c in st.ssm] == [False] + [True] * 7
+    assert all(x.device.type == "cuda" for c in st.kv + st.ssm
+               if c is not None for x in c)
+    longer = T.init_decode_state(cfg, 2, 4096, device=cuda)
+    assert [tuple(x.shape) for c in st.ssm if c is not None for x in c] == \
+        [tuple(x.shape) for c in longer.ssm if c is not None for x in c]
+    params = T.init_params(0, cfg, dtype=torch.float32, device="cpu")
+    params_gpu = _to(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(2, 12)).astype(np.int32))
+    _, sg = T.prefill(params_gpu, cfg, {"tokens": tokens[:, :8].to(cuda)})
+    _, sc = T.prefill(params, cfg, {"tokens": tokens[:, :8]})
+    sg, sc = serve._grow_caches(sg, 4), serve._grow_caches(sc, 4)
+    for t in range(8, 12):
+        _, sg = T.decode_step(params_gpu, cfg, sg, tokens[:, t].to(cuda))
+        _, sc = T.decode_step(params, cfg, sc, tokens[:, t])
+    assert sg.pos == sc.pos == 12
+    for field in ("kv", "ssm"):
+        for cg, cc in zip(getattr(sg, field), getattr(sc, field)):
+            assert (cg is None) == (cc is None)
+            for a, b in zip(cg or (), cc or ()):
+                torch.testing.assert_close(a.cpu(), b, rtol=2e-3, atol=2e-3)
 
 
 def _to(tree, device):
