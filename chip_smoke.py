@@ -66,6 +66,17 @@ bfloat16 and uint8 payloads), then drives the main paths:
   dropped entries exactly) and mamba2-2.7b whole (``phase_serve_ssm``:
   64 Mamba2 layers, no kernel of the port on its path), each with its
   logits checked against a teacher-forced forward and planted faults;
+* serving of the vlm and audio families: llava-next-34b at full width
+  and depth (60 layers, 68.78 GB of bf16 weights; ``phase_serve_vlm``:
+  the same traffic with 576 image prefix rows before the long prompt,
+  and an image-prefixed batch of 4 x (576 + 32) + 16, the prefill on
+  ``tc_prefill`` and the decode on ``split_decode`` at 7 query heads a
+  kv head; a decode after the prefix's KV rows were zeroed must fail
+  its check) and whisper-tiny whole (``phase_serve_audio``: the
+  reference CLI's generate on f32 frames against bf16 weights, so the
+  encoder and the cross-attention run on ``tc_f32`` and the decoder's
+  self-attention in bf16, and a 448-step decode on seeded frames; a
+  causal encoder and a zeroed encoder output must fail their checks);
 * serving from the training phase's newest checkpoint
   (``phase_serve_restore``): ``launch.serve.restore_params`` reads it
   through the planned collective read with the node cache and without,
@@ -587,7 +598,15 @@ def attention_bound(torch, q_shape, k_shape, itemsize, causal, window,
 # kimi-k2's attention (64 query heads over 8 kv heads of 112, no softcap
 # or window) at phase_serve_moe's shapes: its 8192 prefill (where SDPA
 # computes the same function) and a decode step at batch 1 against the
-# 8208 cache
+# 8208 cache; llava-next-34b's (56 query heads over 8 kv heads of 128:
+# g = 7) at phase_serve_vlm's: the long prompt's 576 + 8192 prefill, the
+# image request's batch-4 576 + 32 prefill, a decode step at batch 1
+# against the 8784 cache; and whisper-tiny's (6 heads of 64, g = 1) at
+# phase_serve_audio's: the encoder over 1500 frames (non-causal, f32 on
+# the path), the decoder's self-attention at batch 4 (the 32-token
+# prefill, a decode step against the 48 cache) and its cross-attention
+# (non-causal, 32 queries and 1 against the 1500 encoder rows; f32 on the
+# path)
 FLASH_CASES = (
     ("prefill_global", 1, 8192, 8192, True, None, 0, None, 50.0),
     ("prefill_window", 1, 8192, 8192, True, 4096, 0, None, 50.0),
@@ -598,8 +617,30 @@ FLASH_CASES = (
     ("train_global", 1, 4096, 4096, True, None, 0, None, 50.0),
     ("kimi_prefill", 1, 8192, 8192, True, None, 0, None, None),
     ("kimi_decode_b1", 1, 1, 8208, False, None, 8207, 8208, None),
+    ("llava_prefill", 1, 8768, 8768, True, None, 0, None, None),
+    ("llava_image_prefill", 4, 608, 608, True, None, 0, None, None),
+    ("llava_decode_b1", 1, 1, 8784, False, None, 8783, 8784, None),
+    ("whisper_encoder", 4, 1500, 1500, False, None, 0, None, None),
+    ("whisper_self_prefill", 4, 32, 32, True, None, 0, None, None),
+    ("whisper_self_decode", 4, 1, 48, False, None, 47, 48, None),
+    ("whisper_xattn_prefill", 4, 32, 1500, False, None, 0, None, None),
+    ("whisper_xattn_decode", 4, 1, 1500, False, None, 0, None, None),
 )
-FLASH_HEADS = {"kimi_prefill": (64, 8, 112), "kimi_decode_b1": (64, 8, 112)}
+FLASH_HEADS = {"kimi_prefill": (64, 8, 112), "kimi_decode_b1": (64, 8, 112),
+               **{c: (56, 8, 128) for c in ("llava_prefill",
+                                            "llava_image_prefill",
+                                            "llava_decode_b1")},
+               **{c[0]: (6, 6, 64) for c in FLASH_CASES
+                  if c[0].startswith("whisper")}}
+# the cases of the vlm and audio paths, and the type each runs in there
+VLM_AUDIO_CASES = {"llava_prefill": "bfloat16",
+                   "llava_image_prefill": "bfloat16",
+                   "llava_decode_b1": "bfloat16",
+                   "whisper_encoder": "float32",
+                   "whisper_self_prefill": "bfloat16",
+                   "whisper_self_decode": "bfloat16",
+                   "whisper_xattn_prefill": "float32",
+                   "whisper_xattn_decode": "float32"}
 # products of hd a visible pair the f32 route issues: q.k as three TF32
 # products (the split), p.v as one bf16 product
 F32_PRODUCTS = {"tf32": 3, "bf16": 1}
@@ -698,7 +739,8 @@ def planted_faults(ops, q, k, v, got, kw):
     """Wrong attentions at this case's shapes, which the check must
     fail: the kernel's output halved, and the kernel run with a mask
     dropped (the window, the causal mask) or with its keys cut short by
-    one 64-key tile."""
+    one 64-key tile (a non-causal call without ``kv_len``: its keys
+    bounded one tile short of Skv)."""
     faults = {"halved": lambda: got * 0.5}
     if kw.get("window") is not None and \
             kw["q_offset"] + q.shape[1] > kw["window"]:
@@ -709,7 +751,10 @@ def planted_faults(ops, q, k, v, got, kw):
             q, k, v, **{**kw, "causal": False})
     if kw.get("kv_len") is not None:
         faults["kv_len_short_one_tile"] = lambda: ops.fused_attention(
-            q, k, v, **{**kw, "kv_len": kw["kv_len"] - 64})
+            q, k, v, **{**kw, "kv_len": max(1, kw["kv_len"] - 64)})
+    elif not kw["causal"] and k.shape[1] > 64:
+        faults["keys_short_one_tile"] = lambda: ops.fused_attention(
+            q, k, v, **{**kw, "kv_len": k.shape[1] - 64})
     return faults   # a mask that masks nothing here plants no fault
 
 
@@ -725,8 +770,9 @@ def phase_flash(torch, dev, reps):
     (both libraries keep p.v in f32). f32 lines add the products the
     ``tc_f32`` route issues and their rate (``issued_tflops``). Returns
     the bf16 global prefill's line, with the case without the softcap
-    (kernel and SDPA) and the f32 lines of the 8192 prefill and the
-    training shape beside it."""
+    (kernel and SDPA), kimi-k2's, llava-next-34b's and whisper-tiny's
+    cases (each in the type its path runs) and the f32 lines of the 8192
+    prefill and the training shape beside it."""
     from repro_torch.kernels import flash, ops, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -826,6 +872,11 @@ def phase_flash(torch, dev, reps):
                 "bound_by", "library_ms", "library", "max_abs_err")}
                 for c in ("kimi_prefill", "kimi_decode_b1")
                 if (c, "bfloat16") in recs],
+            "vlm_audio_cases": [{k: recs[c, d][k] for k in (
+                "case", "dtype", "route", "q", "kv", "causal", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+                "max_abs_err", "rel_l2")}
+                for c, d in VLM_AUDIO_CASES.items() if (c, d) in recs],
             "f32_cases": [{k: recs[c, "float32"][k] for k in (
                 "case", "route", "ms", "plain_ms", "bound_ms",
                 "max_abs_err", "achieved_tflops", "issued_tflops")}
@@ -1405,19 +1456,21 @@ def layer_checks(ops, ref, captured, phase="serve_layer_checks",
     """The attention of the first layer of each kind (``kinds``) of a
     prefill (``captured``: kind -> the call's q, k, v and keywords)
     through the kernel and the plain version, held to the kernel phase's
-    bf16 limits; the planted faults must fail them."""
+    limits for the call's type; the planted faults must fail them."""
     checks = {}
-    tol = ATTN_TOL["bfloat16"]
     for kind, (q, k, v, kw) in sorted(captured.items()):
+        tol = ATTN_TOL[str(q.dtype).split(".")[-1]]
         want = ref.flash_attention_ref(q, k, v, **kw)
         got = ops.fused_attention(q, k, v, **kw)
         planted = {f: attn_err(fn(), want, tol) for f, fn in
                    planted_faults(ops, q, k, v, got, kw).items()}
         checks[kind] = {
-            **attn_err(got, want, tol), "window": kw["window"],
+            **attn_err(got, want, tol), "tol": tol,
+            "q": list(q.shape), "kv": list(k.shape), "causal": kw["causal"],
+            "window": kw["window"],
             "planted_rel_l2": {f: c["rel_l2"] for f, c in planted.items()},
             "planted_within": {f: c["within"] for f, c in planted.items()}}
-    emit({"phase": phase, "tol": tol, "tol_rel_l2": ATTN_REL_L2, **checks})
+    emit({"phase": phase, "tol_rel_l2": ATTN_REL_L2, **checks})
     require(set(checks) == set(kinds),
             f"{phase}: captured layers {sorted(checks)}")
     for kind, c in checks.items():
@@ -1480,8 +1533,8 @@ def phase_serve(torch, dev):
         emit({"phase": "serve", **rec})
     gen_len, plen_b = GEN[2], LONG_PROMPT
     # every prefill layer on the tensor cores, every decode layer split
-    per_run = {"tc_prefill": cfg.n_layers,
-               "split_decode": gen_len * cfg.n_layers, "tc_f32": 0}
+    per_run = route_counts(tc_prefill=cfg.n_layers,
+                     split_decode=gen_len * cfg.n_layers)
     for rec in (rec_a, rec_b):
         require(rec["flash_launches_by_route"] == per_run,
                 f"serve {rec['run']}: flash routes "
@@ -1522,7 +1575,9 @@ def phase_serve(torch, dev):
           "planted_window_dropped_vs_kernel": planted_vs_kern,
           "ok": True})
     torch.cuda.empty_cache()
-    serve_profiles(torch, layers, cfg, params, traffic, "serve", per_run)
+    serve_profiles(torch, layers, cfg, params, traffic, "serve",
+                   route_counts(tc_prefill=cfg.n_layers),
+                   route_counts(split_decode=gen_len * cfg.n_layers))
     del params, traffic
     torch.cuda.empty_cache()
     return traffic_counts(rec_a, rec_b)
@@ -1558,82 +1613,58 @@ def without_causal(attention):
     return lambda q, k, v, **kw: attention(q, k, v, **{**kw, "causal": False})
 
 
-def serve_traffic(torch, dev, cfg, params, watch=contextlib.nullcontext,
-                  checks=lambda: None):
-    """The serving cells of ``phase_serve`` on another model: (a)
-    ``serve.generate`` at ``GEN`` (batch 4, prompt 32, 16 new tokens),
-    then its prefill and decode loop timed apart; (b) a batch-1 prefill
-    of ``LONG_PROMPT`` tokens and 16 greedy decode steps. Each counted
-    run follows a warm-up, with every launch count set to 0 just before
-    it and read just after; (b)'s warm-up prefill runs under
-    ``watch()`` (to capture a layer's inputs), and ``checks()`` runs
-    after it, before the counted run (so that the counted run holds no
-    captured tensor). Returns the two runs' records (with their launches
-    and flash routes), the prompts, the picked tokens and the served
-    logit rows ``[1, 17, V]`` (the prefill's last row, then each decode
-    step's)."""
+def route_counts(tc_prefill=0, split_decode=0, tc_f32=0) -> dict:
+    """Flash launches by route, as ``launches_by_route`` counts them."""
+    return {"tc_prefill": tc_prefill, "split_decode": split_decode,
+            "tc_f32": tc_f32}
+
+
+def add_routes(a: dict, b: dict) -> dict:
+    return {r: a[r] + b[r] for r in a}
+
+
+def synced(torch, fn):
+    """``fn()`` and its wall in ms between two device synchronisations."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def counted(torch, dev, fn):
+    """``synced(fn)`` with every launch count and the peak memory reset
+    just before it: (out, ms, launches, flash routes, peak bytes)."""
     from repro_torch import kernels
     from repro_torch.kernels import flash
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, ms = synced(torch, fn)
+    return out, ms, kernels.launch_counts(), dict(
+        flash.flash_attention_fused.launches_by_route), \
+        torch.cuda.max_memory_allocated(dev)
+
+
+def served_request(torch, dev, cfg, params, batch, gen_len, run,
+                   watch=contextlib.nullcontext, checks=lambda: None):
+    """One request as the reference's tests drive one: a warm-up prefill
+    of ``batch`` under ``watch()`` (to capture a layer's inputs), then
+    ``checks()`` (so that the counted run holds no captured tensor),
+    then the counted run: the prefill and ``gen_len`` greedy decode
+    steps, every launch count set to 0 just before it and read just
+    after. Returns (record, picked tokens ``[B, gen_len]``, served logit
+    rows ``[B, gen_len + 1, V]``: the prefill's last row, then each
+    decode step's)."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    batch, plen, gen_len = GEN
-
-    def synced(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3
-
-    def counted(fn):
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats(dev)
-        out, ms = synced(fn)
-        return out, ms, kernels.launch_counts(), dict(
-            flash.flash_attention_fused.launches_by_route), \
-            torch.cuda.max_memory_allocated(dev)
-
-    prompts = torch.randint(0, cfg.vocab, (batch, plen), generator=gen,
-                            device=dev, dtype=torch.int32)
-    serve.generate(params, cfg, prompts, gen_len)          # warm-up
-    out, gen_ms, launches_a, routes_a, peak_a = counted(
-        lambda: serve.generate(params, cfg, prompts, gen_len))
-    require(tuple(out.shape) == (batch, gen_len + 1)
-            and bool(((out >= 0) & (out < cfg.vocab)).all()),
-            f"{cfg.name} generate: tokens {tuple(out.shape)} out of range")
-    (_, state), prefill_ms = synced(lambda: T.prefill(
-        params, cfg, {"tokens": prompts}))
-    state = serve._grow_caches(state, gen_len)
-
-    def decode_loop(state, tok, n):
-        for _ in range(n):
-            logits, state = T.decode_step(params, cfg, state, tok)
-            tok = serve.pick(logits, cfg.vocab)
-        return state
-    _, decode_ms = synced(lambda: decode_loop(state, out[:, 0], gen_len))
-    del state
-    rec_a = {"run": "generate", "batch": batch, "prompt_len": plen,
-             "new_tokens": gen_len, "generate_ms": gen_ms,
-             "tokens_per_s": batch * (gen_len + 1) / gen_ms * 1e3,
-             "prefill_ms": prefill_ms,
-             "decode_ms_per_step": decode_ms / gen_len,
-             "decode_tokens_per_s": batch * gen_len / decode_ms * 1e3,
-             "peak_mem_bytes": peak_a, "launches": launches_a,
-             "flash_launches_by_route": routes_a,
-             "sample": out[0, :8].tolist()}
-
-    prompt = torch.randint(0, cfg.vocab, (1, LONG_PROMPT), generator=gen,
-                           device=dev, dtype=torch.int32)
     with watch():
-        T.prefill(params, cfg, {"tokens": prompt})          # warm-up
+        T.prefill(params, cfg, batch)                       # warm-up
     checks()
     picked, rows = [], []
 
-    def long_run():
-        logits, state = T.prefill(params, cfg, {"tokens": prompt})
+    def run_it():
+        logits, state = T.prefill(params, cfg, batch)
         rows.append(logits)
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1645,40 +1676,112 @@ def serve_traffic(torch, dev, cfg, params, watch=contextlib.nullcontext,
             rows.append(logits)
             tok = serve.pick(logits, cfg.vocab)
         return t
-    t_dec, total_ms, launches_b, routes_b, peak_b = counted(long_run)
-    decode_b_ms = (time.perf_counter() - t_dec) * 1e3
-    rec_b = {"run": "long_prompt", "batch": 1, "prompt_len": LONG_PROMPT,
-             "new_tokens": gen_len, "prefill_ms": total_ms - decode_b_ms,
-             "prefill_tokens_per_s": LONG_PROMPT / (total_ms - decode_b_ms)
-             * 1e3, "decode_ms_per_step": decode_b_ms / gen_len,
-             "decode_tokens_per_s": gen_len / decode_b_ms * 1e3,
-             "peak_mem_bytes": peak_b, "launches": launches_b,
-             "flash_launches_by_route": routes_b}
+    t_dec, total_ms, launches, by_route, peak = counted(torch, dev, run_it)
+    decode_ms = (time.perf_counter() - t_dec) * 1e3
+    b, plen = batch["tokens"].shape
+    rec = {"run": run, "batch": b, "prompt_len": plen,
+           **({"prefix_rows": batch["prefix_embeds"].shape[1]}
+              if "prefix_embeds" in batch else {}),
+           **({"frames": list(batch["frames"].shape[1:]),
+               "frames_dtype": str(batch["frames"].dtype)}
+              if "frames" in batch else {}),
+           "new_tokens": gen_len, "prefill_ms": total_ms - decode_ms,
+           "prefill_tokens_per_s": b * plen / (total_ms - decode_ms) * 1e3,
+           "decode_ms_per_step": decode_ms / gen_len,
+           "decode_tokens_per_s": b * gen_len / decode_ms * 1e3,
+           "peak_mem_bytes": peak, "launches": launches,
+           "flash_launches_by_route": by_route}
     torch.cuda.empty_cache()
-    return {"records": (rec_a, rec_b), "prompts": prompts, "prompt": prompt,
-            "picked": torch.stack(picked, dim=1),
-            "served": torch.stack(rows, dim=1)}
+    return rec, torch.stack(picked, dim=1), torch.stack(rows, dim=1)
 
 
-def serve_profiles(torch, layers, cfg, params, traffic, what, per_run):
-    """The ``profile`` lines of a serving phase (after its counts are
-    read): ``generate``, the long prefill, and its 16 decode steps; the
-    prefill's and the decode's flash launches must be ``per_run``'s
-    (a run's routes) on their routes."""
+def serve_traffic(torch, dev, cfg, params, watch=contextlib.nullcontext,
+                  checks=lambda: None, long_extra=None, long_len=None,
+                  long_gen=None):
+    """The serving cells of ``phase_serve`` on another model: (a)
+    ``serve.generate`` at ``GEN`` (batch 4, prompt 32, 16 new tokens),
+    then its prefill (``serve.request_batch``) and decode loop timed
+    apart; (b) ``served_request`` of a batch-1 prompt of ``long_len``
+    (default ``LONG_PROMPT``) tokens (with ``long_extra``'s inputs: a
+    vlm's prefix, an enc-dec's frames) and ``long_gen`` (default 16)
+    greedy decode steps. Each
+    counted run follows a warm-up, with every launch count set to 0 just
+    before it and read just after; (b)'s warm-up prefill runs under
+    ``watch()`` and ``checks()`` runs after it. Returns the two runs'
+    records (with their launches and flash routes), the prompts, the
+    long request's batch, the picked tokens and the served logit rows
+    ``[1, long_gen + 1, V]``."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
-    prompt, gen_len = traffic["prompt"], GEN[2]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    batch, plen, gen_len = GEN
+
+    prompts = torch.randint(0, cfg.vocab, (batch, plen), generator=gen,
+                            device=dev, dtype=torch.int32)
+    serve.generate(params, cfg, prompts, gen_len)          # warm-up
+    out, gen_ms, launches_a, routes_a, peak_a = counted(
+        torch, dev, lambda: serve.generate(params, cfg, prompts, gen_len))
+    require(tuple(out.shape) == (batch, gen_len + 1)
+            and bool(((out >= 0) & (out < cfg.vocab)).all()),
+            f"{cfg.name} generate: tokens {tuple(out.shape)} out of range")
+    (_, state), prefill_ms = synced(torch, lambda: T.prefill(
+        params, cfg, serve.request_batch(cfg, prompts)))
+    state = serve._grow_caches(state, gen_len)
+
+    def decode_loop(state, tok, n):
+        for _ in range(n):
+            logits, state = T.decode_step(params, cfg, state, tok)
+            tok = serve.pick(logits, cfg.vocab)
+        return state
+    _, decode_ms = synced(torch, lambda: decode_loop(state, out[:, 0],
+                                                     gen_len))
+    del state
+    rec_a = {"run": "generate", "batch": batch, "prompt_len": plen,
+             "new_tokens": gen_len, "generate_ms": gen_ms,
+             "tokens_per_s": batch * (gen_len + 1) / gen_ms * 1e3,
+             "prefill_ms": prefill_ms,
+             "decode_ms_per_step": decode_ms / gen_len,
+             "decode_tokens_per_s": batch * gen_len / decode_ms * 1e3,
+             "peak_mem_bytes": peak_a, "launches": launches_a,
+             "flash_launches_by_route": routes_a,
+             "sample": out[0, :8].tolist()}
+
+    long_len = LONG_PROMPT if long_len is None else long_len
+    prompt = torch.randint(0, cfg.vocab, (1, long_len), generator=gen,
+                           device=dev, dtype=torch.int32)
+    long_batch = {"tokens": prompt, **(long_extra or {})}
+    long_gen = gen_len if long_gen is None else long_gen
+    rec_b, picked, served = served_request(
+        torch, dev, cfg, params, long_batch, long_gen, "long_prompt", watch,
+        checks)
+    return {"records": (rec_a, rec_b), "prompts": prompts, "prompt": prompt,
+            "long_batch": long_batch, "long_gen": long_gen,
+            "picked": picked, "served": served}
+
+
+def serve_profiles(torch, layers, cfg, params, traffic, what, prefill_routes,
+                   decode_routes):
+    """The ``profile`` lines of a serving phase (after its counts are
+    read): ``generate``, the long request's prefill, and its first
+    ``GEN[2]`` decode steps (reading a profile back costs about a
+    millisecond an event: whisper's 448 steps took 183 s on an H100
+    host); the prefill's and the decode's flash launches must be
+    ``prefill_routes`` and ``decode_routes``."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    batch = traffic["long_batch"]
+    gen_len = min(traffic["long_gen"], GEN[2])
+    plen = batch["tokens"].shape[1]
     emit({"phase": "profile", "method": f"{what}_generate",
           **profile_serve(torch, layers, serve.generate,
-                          (params, cfg, traffic["prompts"], gen_len))})
-    prof = profile_serve(torch, layers, T.prefill,
-                         (params, cfg, {"tokens": prompt}))
-    emit({"phase": "profile", "method": f"{what}_prefill_{LONG_PROMPT}",
-          **prof})
-    require(prof["flash_launches_by_route"]["tc_prefill"]
-            == per_run["tc_prefill"],
-            f"{what} prefill: {prof['flash_launches_by_route']}")
-    _, state = T.prefill(params, cfg, {"tokens": prompt})
+                          (params, cfg, traffic["prompts"], GEN[2]))})
+    prof = profile_serve(torch, layers, T.prefill, (params, cfg, batch))
+    emit({"phase": "profile", "method": f"{what}_prefill_{plen}", **prof})
+    require(prof["flash_launches_by_route"] == prefill_routes,
+            f"{what} prefill: {prof['flash_launches_by_route']}, expected "
+            f"{prefill_routes}")
+    _, state = T.prefill(params, cfg, batch)
     state = serve._grow_caches(state, gen_len)
 
     def decode_loop(state, tok):
@@ -1688,10 +1791,10 @@ def serve_profiles(torch, layers, cfg, params, traffic, what, per_run):
     prof = profile_serve(torch, layers, decode_loop,
                          (state, traffic["picked"][:, 0]))
     emit({"phase": "profile",
-          "method": f"{what}_decode_{gen_len}_at_{LONG_PROMPT}", **prof})
-    require(prof["flash_launches_by_route"]["split_decode"]
-            == per_run["split_decode"],
-            f"{what} decode: {prof['flash_launches_by_route']}")
+          "method": f"{what}_decode_{gen_len}_at_{plen}", **prof})
+    require(prof["flash_launches_by_route"] == decode_routes,
+            f"{what} decode: {prof['flash_launches_by_route']}, expected "
+            f"{decode_routes}")
     del state
     torch.cuda.empty_cache()
 
@@ -1848,8 +1951,8 @@ def phase_serve_moe(torch, dev):
     rec_a, rec_b = traffic["records"]
     for rec in (rec_a, rec_b):
         emit({"phase": "serve_moe", **rec})
-    per_run = {"tc_prefill": cfg.n_layers,
-               "split_decode": gen_len * cfg.n_layers, "tc_f32": 0}
+    per_run = route_counts(tc_prefill=cfg.n_layers,
+                     split_decode=gen_len * cfg.n_layers)
     for rec in (rec_a, rec_b):
         require(rec["flash_launches_by_route"] == per_run,
                 f"serve_moe {rec['run']}: flash routes "
@@ -1906,7 +2009,9 @@ def phase_serve_moe(torch, dev):
     require(planted_vs_kern["rel_l2"] > KIMI_REL_L2,
             f"a forward without the causal mask passes: {planted_vs_kern}")
     torch.cuda.empty_cache()
-    serve_profiles(torch, layers, cfg, params, traffic, "serve_moe", per_run)
+    serve_profiles(torch, layers, cfg, params, traffic, "serve_moe",
+                   route_counts(tc_prefill=cfg.n_layers),
+                   route_counts(split_decode=gen_len * cfg.n_layers))
     del params, traffic
     torch.cuda.empty_cache()
     return traffic_counts(rec_a, rec_b)
@@ -2006,8 +2111,387 @@ def phase_serve_ssm(torch, dev):
             "history")
     torch.cuda.empty_cache()
     serve_profiles(torch, layers, cfg, params, traffic, "serve_ssm",
-                   {"tc_prefill": 0, "split_decode": 0})
+                   route_counts(), route_counts())
     del params, traffic
+    torch.cuda.empty_cache()
+    return traffic_counts(rec_a, rec_b)
+
+
+# serving of the vlm and audio families (llava-next-34b, whisper-tiny)
+AUDIO_REL_L2 = 1e-2           # whisper's 4 decoder layers, f32 weights
+# the same in bf16: bf16's own distance from the f32 weights' logits is
+# 0.0117 on whisper-tiny (an H100 SXM at 700 W; the per-layer attention
+# checks read 1.2e-3 at most), and two bf16 computations in other orders
+# may each be that far: twice it, rounded up
+AUDIO_BF16_REL_L2 = 2.5e-2
+AUDIO_LONG = (32, 448)        # whisper's long request: 1 x 32 + 448
+
+
+def free_device(torch, dev) -> int:
+    """Drop what earlier phases left (``gc``, the caching allocator's
+    free blocks), reset the peak statistics; the bytes still allocated."""
+    import gc
+    torch.cuda.synchronize(dev)      # initialises CUDA in a fresh process
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def as_f32(tree):
+    """A parameter tree with every leaf converted to f32 (exactly, from
+    bf16)."""
+    if isinstance(tree, dict):
+        return {k: as_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [as_f32(v) for v in tree]
+    return tree.float()
+
+
+def decode_rows(torch, params, cfg, state, picked):
+    """Teacher-forced decode of ``picked`` [B, n] from ``state`` (grown
+    by n): the logit rows ``[B, n, V]``."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    state = serve._grow_caches(state, picked.shape[1])
+    rows = []
+    for t in range(picked.shape[1]):
+        logits, state = T.decode_step(params, cfg, state, picked[:, t])
+        rows.append(logits)
+    return torch.stack(rows, dim=1)
+
+
+def phase_serve_vlm(torch, dev):
+    """Greedy serving of llava-next-34b (vlm) at full width and depth
+    (60 layers): d 7168, 56 query over 8 kv heads of 128 (g = 7),
+    d_ff 20480, vocab 64000, 576 image prefix rows (the reference's
+    vision stub: precomputed embeddings, here seeded normal at the token
+    embeddings' scale, 0.02 sqrt(d)); bf16 weights from a seeded
+    ``torch.Generator`` (68.78 GB at depth 60). Traffic: (a)
+    ``serve.generate`` 4 x 32 + 16 on tokens alone, as the reference CLI
+    serves it; (b) a long prompt of 576 prefix rows + 8192 tokens and 16
+    decode steps (``serve_traffic``); (c) an image-prefixed request:
+    batch 4, 576 prefix rows + 32 tokens, 16 decode steps
+    (``served_request``), the reference's own drive of a vlm
+    (``tests/test_models.py``). Every prefill layer on ``tc_prefill``,
+    every decode layer on ``split_decode`` (required per run).
+
+    Checks, each failing the run: (c)'s served logits (the prefill's
+    last row, each decode step's) against a teacher-forced ``forward`` of
+    the same prefix and tokens, and so (b)'s, relative L2 within
+    ``SERVE_REL_L2``; (c)'s ``forward`` and prefill through the kernels
+    against attention forced through ``flash_attention_ref``, within the
+    same limit, where a forward without the causal mask must not be; the
+    first layer's attention of (c)'s prefill against the plain version
+    (``layer_checks``); and a planted fault: (c)'s decode steps after a
+    prefill whose prefix KV rows (positions 0 to 575) were zeroed must
+    fail the decode check. The long prompt's attention against the plain
+    version is ``phase_flash``'s ``llava_prefill`` case (the plain
+    version's 8 GB f32 logits a chunk do not fit beside the weights).
+    Returns the launches and flash routes of the three counted runs."""
+    from repro_torch import configs, kernels
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    cfg = configs.get("llava_next_34b")
+    resident = free_device(torch, dev)
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    npfx, d = cfg.num_prefix_embeds, cfg.d_model
+    emit({"phase": "serve_vlm_setup", **param_record(cfg, params),
+          "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+          "d_ff": cfg.d_ff, "prefix_rows": npfx,
+          "cut": "none (full width and depth)",
+          "resident_before_bytes": resident,
+          "init_s": time.perf_counter() - t0})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def prefix(b):
+        return torch.randn((b, npfx, d), generator=gen, device=dev).mul_(
+            0.02 * math.sqrt(d))
+    traffic = serve_traffic(torch, dev, cfg, params,
+                            long_extra={"prefix_embeds": prefix(1)})
+    batch, plen, gen_len = GEN
+    img = {"tokens": torch.randint(0, cfg.vocab, (batch, plen),
+                                   generator=gen, device=dev,
+                                   dtype=torch.int32),
+           "prefix_embeds": prefix(batch)}
+    captured = {}
+
+    def watch():
+        return patched_attention(layers, watching(
+            lambda q, k, v, kw: captured.setdefault("global", (q, k, v, kw))))
+
+    def checks():
+        layer_checks(ops, ref, captured, "serve_vlm_layer_checks",
+                     ("global",))
+        captured.clear()
+    rec_c, picked_c, served_c = served_request(
+        torch, dev, cfg, params, img, gen_len, "image_request", watch, checks)
+    rec_a, rec_b = traffic["records"]
+    per_run = route_counts(tc_prefill=cfg.n_layers,
+                     split_decode=gen_len * cfg.n_layers)
+    for rec in (rec_a, rec_b, rec_c):
+        emit({"phase": "serve_vlm", **rec})
+        require(rec["flash_launches_by_route"] == per_run,
+                f"serve_vlm {rec['run']}: flash routes "
+                f"{rec['flash_launches_by_route']}, expected {per_run}")
+
+    # (c): decode and prefill vs forward, kernel vs plain, planted faults
+    full = {"tokens": torch.cat([img["tokens"], picked_c], dim=1),
+            "prefix_embeds": img["prefix_embeds"]}
+    rows = slice(npfx + plen - 1, npfx + plen + gen_len)
+    fwd, _ = T.forward(params, cfg, full)
+    dec_vs_fwd = logit_stats(torch, served_c, fwd[:, rows])
+    before = kernels.launch_counts()["flash_attention_fused"]
+    with patched_attention(layers, lambda _: ref.flash_attention_ref):
+        fwd_plain, _ = T.forward(params, cfg, full)
+        prefill_plain, _ = T.prefill(params, cfg, img)
+    require(kernels.launch_counts()["flash_attention_fused"] == before,
+            "the plain-attention runs launched the kernel")
+    kern_vs_plain = logit_stats(torch, fwd, fwd_plain)
+    prefill_vs_plain = logit_stats(torch, served_c[:, :1],
+                                   prefill_plain[:, None])
+    del fwd_plain, prefill_plain
+    with patched_attention(layers, without_causal):
+        fwd_planted, _ = T.forward(params, cfg, full)
+    causal_vs_kern = logit_stats(torch, fwd_planted, fwd)
+    del fwd, fwd_planted
+    _, state = T.prefill(params, cfg, img)
+    for k_cache, v_cache in state.kv:
+        k_cache[:, :, :npfx].zero_()                # the planted fault
+        v_cache[:, :, :npfx].zero_()
+    planted_rows = decode_rows(torch, params, cfg, state, picked_c)
+    del state
+    prefix_zeroed = logit_stats(torch, planted_rows, served_c[:, 1:])
+    del planted_rows
+
+    # (b): the long prompt's decode vs forward
+    long_full = {"tokens": torch.cat([traffic["prompt"], traffic["picked"]],
+                                     dim=1),
+                 "prefix_embeds": traffic["long_batch"]["prefix_embeds"]}
+    fwd, _ = T.forward(params, cfg, long_full)
+    end = npfx + long_full["tokens"].shape[1]
+    long_dec_vs_fwd = logit_stats(torch, traffic["served"],
+                                  fwd[:, end - gen_len - 1:end])
+    del fwd
+    emit({"phase": "serve_vlm_checks", "tol_rel_l2": SERVE_REL_L2,
+          "image_request": {"batch": batch, "prefix_rows": npfx,
+                            "tokens": plen + gen_len},
+          "decode_vs_forward": dec_vs_fwd,
+          "forward_kernel_vs_plain": kern_vs_plain,
+          "prefill_kernel_vs_plain": prefill_vs_plain,
+          "planted_causal_dropped_vs_kernel": causal_vs_kern,
+          "planted_prefix_kv_zeroed_vs_served": prefix_zeroed,
+          "long_prompt_decode_vs_forward": long_dec_vs_fwd})
+    for what, st in (("decode vs forward", dec_vs_fwd),
+                     ("forward through the kernel vs plain", kern_vs_plain),
+                     ("prefill through the kernel vs plain",
+                      prefill_vs_plain),
+                     ("long prompt decode vs forward", long_dec_vs_fwd)):
+        require(st["rel_l2"] <= SERVE_REL_L2, f"serve_vlm {what}: {st}")
+    for what, st in (("a forward without the causal mask", causal_vs_kern),
+                     ("a decode after the prefix's KV rows were zeroed",
+                      prefix_zeroed)):
+        require(st["rel_l2"] > SERVE_REL_L2, f"serve_vlm: {what} passes: "
+                f"{st}")
+    torch.cuda.empty_cache()
+    serve_profiles(torch, layers, cfg, params, traffic, "serve_vlm",
+                   route_counts(tc_prefill=cfg.n_layers),
+                   route_counts(split_decode=gen_len * cfg.n_layers))
+    del params, traffic, img, full, long_full
+    torch.cuda.empty_cache()
+    counts = traffic_counts(rec_a, rec_b)
+    return (add_routes(counts[0], rec_c["launches"]),
+            add_routes(counts[1], rec_c["flash_launches_by_route"]))
+
+
+def encoder_causal(enc_seq):
+    """A planted fault: the encoder's self-attention (non-causal, Sq =
+    Skv = ``enc_seq``, no ``kv_len``) run causal."""
+    def wrap(attention):
+        def run(q, k, v, **kw):
+            if (not kw["causal"] and kw.get("kv_len") is None
+                    and q.shape[1] == k.shape[1] == enc_seq):
+                kw = {**kw, "causal": True}
+            return attention(q, k, v, **kw)
+        return run
+    return wrap
+
+
+def phase_serve_audio(torch, dev):
+    """Greedy serving of whisper-tiny (enc-dec audio) whole: 4 encoder
+    and 4 decoder layers, d 384, 6 heads of 64, d_ff 1536, vocab 51865,
+    1500 frames (the reference's audio stub: precomputed frame
+    embeddings); bf16 weights from a seeded ``torch.Generator``. Traffic
+    (``serve_traffic``): (a) ``serve.generate`` 4 x 32 + 16 with the
+    reference CLI's frames (f32, all 0.01); (b) a long decode, 1 x 32 +
+    448 on seeded unit-normal f32 frames (constant frames make every
+    encoder row equal and would hide a mask or key-range fault). As in
+    the reference, f32 frames against bf16 weights run the encoder in
+    f32 (``tc_f32``, non-causal), the decoder in bf16 (self-attention on
+    ``tc_prefill`` and ``split_decode``) and its cross-attention in f32
+    (``tc_f32``: bf16 queries promoted against f32 keys); every count by
+    route is required per run.
+
+    Checks, each failing the run, on (b): decode against a
+    teacher-forced ``forward`` of the same frames and tokens, and
+    ``forward`` and the prefill through the kernels against attention
+    forced through ``flash_attention_ref``, relative L2 within
+    ``AUDIO_BF16_REL_L2``, and the bf16 forward against the same weights
+    converted to f32 within it too; the f32 model's decode against its
+    forward, and its forward through the kernels against the plain
+    attention, within ``AUDIO_REL_L2``; the encoder outputs through the
+    kernels and the plain attention within ``ATTN_TOL``; the attention of the first encoder layer, the first
+    decoder self-attention and the first cross-attention against the
+    plain version (``layer_checks``); the encoder output in f32, the KV
+    caches and logits in bf16; planted faults: the encoder run causal
+    must fail the encoder-output check, and decode steps from a state
+    whose ``enc_out`` was zeroed must fail the decode check. Returns the
+    launches and flash routes of the two counted runs."""
+    from repro_torch import configs, kernels
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    cfg = configs.get("whisper_tiny")
+    resident = free_device(torch, dev)
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "serve_audio_setup", **param_record(cfg, params),
+          "enc_layers": cfg.n_enc_layers, "enc_seq": cfg.enc_seq,
+          "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+          "d_ff": cfg.d_ff, "cut": "none (whole)",
+          "resident_before_bytes": resident,
+          "init_s": time.perf_counter() - t0})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    frames = torch.randn((1, cfg.enc_seq, cfg.d_model), generator=gen,
+                         device=dev)
+    captured = {}
+
+    def kind(q, k, kw):
+        if kw["causal"]:
+            return "decoder_self"
+        return "encoder" if q.shape[1] == k.shape[1] else "cross"
+
+    def watch():
+        return patched_attention(layers, watching(
+            lambda q, k, v, kw: captured.setdefault(kind(q, k, kw),
+                                                    (q, k, v, kw))))
+
+    def checks():
+        layer_checks(ops, ref, captured, "serve_audio_layer_checks",
+                     ("cross", "decoder_self", "encoder"))
+        captured.clear()
+    plen, long_gen = AUDIO_LONG
+    traffic = serve_traffic(torch, dev, cfg, params, watch, checks,
+                            long_extra={"frames": frames}, long_len=plen,
+                            long_gen=long_gen)
+    rec_a, rec_b = traffic["records"]
+    n, gen_len = cfg.n_layers, GEN[2]
+    for rec, steps in ((rec_a, gen_len), (rec_b, long_gen)):
+        emit({"phase": "serve_audio", **rec})
+        want = route_counts(tc_prefill=n, split_decode=steps * n,
+                      tc_f32=cfg.n_enc_layers + n + steps * n)
+        require(rec["flash_launches_by_route"] == want,
+                f"serve_audio {rec['run']}: flash routes "
+                f"{rec['flash_launches_by_route']}, expected {want}")
+
+    batch = traffic["long_batch"]
+    full = {"tokens": torch.cat([traffic["prompt"], traffic["picked"]],
+                                dim=1), "frames": frames}
+    rows = slice(plen - 1, plen + long_gen)
+    fwd, _ = T.forward(params, cfg, full)
+    dec_vs_fwd = {**logit_stats(torch, traffic["served"], fwd[:, rows]),
+                  "rows_rel_l2_max": max(row_rel_l2(traffic["served"],
+                                                    fwd[:, rows]))}
+    _, state = T.prefill(params, cfg, batch)
+    types = {"enc_out": str(state.enc_out.dtype),
+             "kv": str(state.kv[0][0].dtype),
+             "logits": str(traffic["served"].dtype)}
+    enc_out = state.enc_out
+    before = kernels.launch_counts()["flash_attention_fused"]
+    with patched_attention(layers, lambda _: ref.flash_attention_ref):
+        fwd_plain, _ = T.forward(params, cfg, full)
+        prefill_plain, state_plain = T.prefill(params, cfg, batch)
+    require(kernels.launch_counts()["flash_attention_fused"] == before,
+            "the plain-attention runs launched the kernel")
+    kern_vs_plain = logit_stats(torch, fwd, fwd_plain)
+    prefill_vs_plain = logit_stats(torch, traffic["served"][:, :1],
+                                   prefill_plain[:, None])
+    enc_vs_plain = attn_err(enc_out, state_plain.enc_out,
+                            ATTN_TOL["float32"])
+    del fwd_plain, prefill_plain, state_plain
+    with patched_attention(layers, encoder_causal(cfg.enc_seq)):
+        _, state_planted = T.prefill(params, cfg, batch)
+        fwd_causal_enc, _ = T.forward(params, cfg, full)
+    enc_causal = attn_err(state_planted.enc_out, enc_out,
+                          ATTN_TOL["float32"])
+    enc_causal_logits = logit_stats(torch, fwd_causal_enc, fwd)
+    del state_planted, fwd_causal_enc
+    state = state._replace(enc_out=torch.zeros_like(enc_out))
+    planted_rows = decode_rows(torch, params, cfg, state, traffic["picked"])
+    enc_zeroed = logit_stats(torch, planted_rows, traffic["served"][:, 1:])
+    del state, planted_rows
+
+    # the same weights in f32 (exactly), the same frames and tokens: the
+    # bf16 path's distance from them, and the f32 model's own checks
+    p32 = as_f32(params)
+    fwd32, _ = T.forward(p32, cfg, full)
+    bf16_vs_f32 = logit_stats(torch, fwd, fwd32)
+    logits32, st32 = T.prefill(p32, cfg, batch)
+    served32 = torch.cat([logits32[:, None], decode_rows(
+        torch, p32, cfg, st32, traffic["picked"])], dim=1)
+    del st32
+    dec_vs_fwd32 = logit_stats(torch, served32, fwd32[:, rows])
+    with patched_attention(layers, lambda _: ref.flash_attention_ref):
+        fwd32_plain, _ = T.forward(p32, cfg, full)
+    kern_vs_plain32 = logit_stats(torch, fwd32, fwd32_plain)
+    del p32, fwd32, fwd32_plain, served32, fwd
+    emit({"phase": "serve_audio_checks", "tol_rel_l2": AUDIO_REL_L2,
+          "tol_rel_l2_bf16": AUDIO_BF16_REL_L2,
+          "tokens": list(full["tokens"].shape), "frames": "seeded normal",
+          "types": types, "decode_vs_forward": dec_vs_fwd,
+          "forward_kernel_vs_plain": kern_vs_plain,
+          "prefill_kernel_vs_plain": prefill_vs_plain,
+          "forward_bf16_vs_f32_weights": bf16_vs_f32,
+          "f32_decode_vs_forward": dec_vs_fwd32,
+          "f32_forward_kernel_vs_plain": kern_vs_plain32,
+          "encoder_output_kernel_vs_plain": enc_vs_plain,
+          "planted_encoder_causal_output": enc_causal,
+          "planted_encoder_causal_logits_vs_kernel": enc_causal_logits,
+          "planted_enc_out_zeroed_vs_served": enc_zeroed})
+    require(types == {"enc_out": "torch.float32", "kv": "torch.bfloat16",
+                      "logits": "torch.bfloat16"},
+            f"serve_audio: types {types}, not the reference's")
+    for what, st, tol in (
+            ("f32 decode vs forward", dec_vs_fwd32, AUDIO_REL_L2),
+            ("f32 forward through the kernel vs plain", kern_vs_plain32,
+             AUDIO_REL_L2),
+            ("decode vs forward", dec_vs_fwd, AUDIO_BF16_REL_L2),
+            ("forward through the kernel vs plain", kern_vs_plain,
+             AUDIO_BF16_REL_L2),
+            ("prefill through the kernel vs plain", prefill_vs_plain,
+             AUDIO_BF16_REL_L2),
+            ("the bf16 forward vs the f32 weights'", bf16_vs_f32,
+             AUDIO_BF16_REL_L2)):
+        require(st["rel_l2"] <= tol, f"serve_audio {what}: {st}")
+    require(enc_vs_plain["within"],
+            f"serve_audio: the encoder output through the kernel vs plain: "
+            f"{enc_vs_plain}")
+    require(not enc_causal["within"],
+            f"serve_audio: a causal encoder passes: {enc_causal}")
+    require(enc_zeroed["rel_l2"] > AUDIO_BF16_REL_L2,
+            f"serve_audio: a decode without the encoder output passes: "
+            f"{enc_zeroed}")
+    torch.cuda.empty_cache()
+    serve_profiles(torch, layers, cfg, params, traffic, "serve_audio",
+                   route_counts(tc_prefill=n, tc_f32=cfg.n_enc_layers + n),
+                   route_counts(split_decode=gen_len * n, tc_f32=gen_len * n))
+    del params, traffic, frames, full, enc_out
     torch.cuda.empty_cache()
     return traffic_counts(rec_a, rec_b)
 
@@ -3000,6 +3484,8 @@ def main() -> int:
     served, served_routes = phase_serve(torch, dev)
     moe, moe_routes = phase_serve_moe(torch, dev)
     ssm, ssm_routes = phase_serve_ssm(torch, dev)
+    vlm, vlm_routes = phase_serve_vlm(torch, dev)
+    audio, audio_routes = phase_serve_audio(torch, dev)
     measured["flash_attention_bwd"] = phase_train_kernel(torch, dev, REPS)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
@@ -3010,12 +3496,12 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    runs = (served, moe, ssm, trained, restored)
+    runs = (served, moe, ssm, vlm, audio, trained, restored)
     launches = {k: launches[k] + patterns[k] + hosted[k]
                 + sum(r[k] for r in runs) for k in launches}
-    routes = {r: sum(rr[r] for rr in (served_routes, moe_routes, ssm_routes,
-                                      trained_routes, restored_routes))
-              for r in served_routes}
+    routes = {r: sum(rr[r] for rr in (
+        served_routes, moe_routes, ssm_routes, vlm_routes, audio_routes,
+        trained_routes, restored_routes)) for r in served_routes}
     require(sum(routes.values()) == launches["flash_attention_fused"],
             f"flash routes {routes} vs {launches['flash_attention_fused']}")
     # pack's line: its largest shape, a window of a training save's
@@ -3032,6 +3518,7 @@ def main() -> int:
         "library": flash_rec["library"],
         "nocap_case": flash_rec["nocap_case"],
         "kimi_cases": flash_rec["kimi_cases"],
+        "vlm_audio_cases": flash_rec["vlm_audio_cases"],
         "f32_cases": flash_rec["f32_cases"],
         "launches_by_route": routes},
         "pack": {"path": "a training save's domain image (phase_train)",
@@ -3040,7 +3527,8 @@ def main() -> int:
                  "plain_chunk": train_pack["plain_chunk"],
                  "host_case": {k: pack_rec[k] for k in case_keys},
                  "window_case": {k: window_case[k] for k in case_keys}}}
-    for what, n in (("serve", served), ("serve_moe", moe)):
+    for what, n in (("serve", served), ("serve_moe", moe),
+                    ("serve_vlm", vlm), ("serve_audio", audio)):
         require(n["flash_attention_fused"] > 0,
                 f"{what}: flash_attention_fused never launched")
     bwd_rec = measured["flash_attention_bwd"]

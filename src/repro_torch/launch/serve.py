@@ -1,5 +1,5 @@
 """Serving entry point: prefill + batched greedy decode (the port of the
-reference's ``launch/serve.py``; dense, moe, ssm and hybrid LMs).
+reference's ``launch/serve.py``; every family the configs hold).
 
 Example (the reduced config, as the reference's CLI serves it):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_9b \
@@ -67,10 +67,25 @@ def pick(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def request_batch(cfg, prompts: torch.Tensor) -> dict:
+    """The batch :func:`generate` prefills: the prompts, and for an
+    enc-dec config the reference CLI's frames, ``ones([B, enc_seq,
+    d_model], f32) * 0.01`` on the prompts' device. A vlm is served on
+    tokens alone, as the reference serves it (an image-prefixed request
+    goes through ``T.prefill`` with ``prefix_embeds``, then
+    ``T.decode_step``)."""
+    batch = {"tokens": prompts}
+    if cfg.enc_dec:
+        batch["frames"] = torch.ones(
+            (prompts.shape[0], cfg.enc_seq, cfg.d_model), dtype=torch.float32,
+            device=prompts.device) * 0.01
+    return batch
+
+
 def generate(params, cfg, prompts: torch.Tensor, gen_len: int):
-    """Greedy generation: prefill then ``gen_len`` decode steps.
-    Returns the tokens ``[B, gen_len + 1]``."""
-    logits, state = T.prefill(params, cfg, {"tokens": prompts})
+    """Greedy generation: prefill (:func:`request_batch`) then
+    ``gen_len`` decode steps. Returns the tokens ``[B, gen_len + 1]``."""
+    logits, state = T.prefill(params, cfg, request_batch(cfg, prompts))
     # pad the caches so decode can extend beyond the prompt
     state = _grow_caches(state, gen_len)
     toks = []
@@ -85,7 +100,8 @@ def generate(params, cfg, prompts: torch.Tensor, gen_len: int):
 
 def _grow_caches(state: T.DecodeState, extra: int) -> T.DecodeState:
     """Zero-pad the seq axis of every ``[n_blocks, B, S, ...]`` KV cache;
-    a Mamba slot (no KV) keeps its fixed-size states."""
+    a Mamba slot (no KV) keeps its fixed-size states, an enc-dec state
+    its ``enc_out``."""
     def grow(c):
         return F.pad(c, (0, 0, 0, 0, 0, extra))
     return state._replace(kv=[None if c is None else (grow(c[0]), grow(c[1]))

@@ -14,7 +14,11 @@ version, ``kernels.ref.flash_attention_ref``, which autograd
 differentiates. The dense matrix products are ``torch.einsum`` calls,
 as the reference leaves them to XLA; so are the MoE's dispatch (a
 stable sort, prefix sums, index writes and gathers) and the SSD scan,
-which the reference writes in ``jnp`` with no Pallas kernel.
+which the reference writes in ``jnp`` with no Pallas kernel. The
+attention's projections and the MLP promote mixed operand types as
+``jnp.einsum`` does (:func:`_mm`): the enc-dec reference feeds f32
+frames to bf16 weights, so its encoder runs in f32, and its decoder's
+cross-attention takes bf16 queries against f32 keys and values.
 """
 from __future__ import annotations
 
@@ -90,9 +94,18 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def _mm(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of two operands in the type JAX promotes them to
+    (``torch.promote_types``: f32 with bf16 gives f32); operands of one
+    type pass unconverted. ``torch.einsum`` itself refuses mixed
+    types."""
+    t = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(t), b.to(t))
+
+
 def _proj_heads(x, w, b, n_heads: int, hd: int):
     b_, s_, _ = x.shape
-    y = torch.einsum("bsd,de->bse", x, w)
+    y = _mm("bsd,de->bse", x, w)
     if b is not None:
         y = y + b
     return y.reshape(b_, s_, n_heads, hd)
@@ -128,22 +141,41 @@ def flash_attention(q, k, v, *, causal: bool, window: int | None,
 
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, *,
               local: bool, cache: tuple | None = None,
-              cache_pos: int | None = None):
+              cache_pos: int | None = None,
+              xattn_kv: torch.Tensor | None = None, causal: bool = True):
     """Full attention sub-layer.
 
     Modes:
-      prefill: cache None -> causal flash attention over x itself.
-        Returns (out, (k, v)) so prefill can build the cache.
+      prefill: cache None -> flash attention over x itself, causal unless
+        the caller says otherwise (the enc-dec encoder passes
+        ``causal=False``). Returns (out, (k, v)) so prefill can build the
+        cache.
       decode: cache=(k_cache, v_cache) [B, S_max, Hkv, hd], cache_pos =
         the write position (an int). x is [B, 1, d]. The new keys and
         values are written into the caches IN PLACE (the reference's
         ``dynamic_update_slice`` returns new arrays); the caches returned
         are the ones passed in.
+      cross-attention (enc-dec): ``xattn_kv`` = the encoder output
+        [B, S_enc, d]; q from x, k and v from it, no rope, no mask, no
+        cache. q, k and v go to the attention in their promoted type (the
+        reference's attention promotes bf16 q against f32 keys) and the
+        output comes back in q's. Returns (out, None).
     """
     window = cfg.window if local else None
+    if xattn_kv is not None:
+        hd = cfg.head_dim
+        q = _proj_heads(x, p["wq"], p.get("bq"), cfg.n_heads, hd)
+        k = _proj_heads(xattn_kv, p["wk"], p.get("bk"), cfg.n_kv_heads, hd)
+        v = _proj_heads(xattn_kv, p["wv"], p.get("bv"), cfg.n_kv_heads, hd)
+        t = torch.promote_types(q.dtype, k.dtype)
+        out = flash_attention(q.to(t), k.to(t), v.to(t), causal=False,
+                              window=None, logit_cap=cfg.attn_logit_softcap,
+                              q_offset=0).to(q.dtype)
+        return _mm("bse,ed->bsd", out.reshape(*out.shape[:2], -1),
+                   p["wo"]), None
     q, k, v = _qkv(p, x, cfg, positions)
     if cache is None:
-        out = flash_attention(q, k, v, causal=True, window=window,
+        out = flash_attention(q, k, v, causal=causal, window=window,
                               logit_cap=cfg.attn_logit_softcap, q_offset=0)
         new_cache = (k, v)
     else:
@@ -160,7 +192,7 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, *,
                               q_offset=cache_pos, kv_len=cache_pos + 1)
         new_cache = (k_cache, v_cache)
     out = out.reshape(*out.shape[:2], -1)
-    return torch.einsum("bse,ed->bsd", out, p["wo"]), new_cache
+    return _mm("bse,ed->bsd", out, p["wo"]), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -178,9 +210,9 @@ def init_mlp(gen: torch.Generator, d: int, f: int, dtype=torch.bfloat16,
 
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = torch.einsum("bsd,df->bsf", x, p["wi"])
-    g = torch.einsum("bsd,df->bsf", x, p["wg"])
-    return torch.einsum("bsf,fd->bsd", F.silu(g) * h, p["wo"])
+    h = _mm("bsd,df->bsf", x, p["wi"])
+    g = _mm("bsd,df->bsf", x, p["wg"])
+    return _mm("bsf,fd->bsd", F.silu(g) * h, p["wo"])
 
 
 # ---------------------------------------------------------------------------

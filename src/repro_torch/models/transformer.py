@@ -1,6 +1,6 @@
-"""Decoder-only LMs of the dense, moe, ssm and hybrid families:
-parameters, forward, loss, prefill and decode (the port of the
-reference's ``models/transformer.py``).
+"""The LMs of every family (dense, moe, ssm, hybrid, vlm) and the
+enc-dec (audio) variant: parameters, forward, loss, prefill and decode
+(the port of the reference's ``models/transformer.py``).
 
 Layer stacking follows the reference: layers are grouped into
 super-blocks of ``cfg.block_period`` layers (gemma2's local/global
@@ -16,8 +16,16 @@ training objective (cross-entropy plus 0.01 x the MoE layers' summed
 aux loss); its gradient comes from autograd, the attention's from the
 backward kernel on the card (``kernels.flash.FlashAttention``).
 
-The audio (enc-dec) and vlm families are not ported: their configs
-raise ``NotImplementedError`` (ROADMAP queue 1).
+The vlm family prepends precomputed image embeddings
+(``batch["prefix_embeds"]``, the reference's stub of the vision tower)
+to the token embeddings, which shifts every position after them; its
+loss leaves the prefix rows out. The enc-dec family runs an encoder
+stack (``enc_blocks``, non-causal, over ``batch["frames"]``, the
+reference's stub of the audio frontend) and ``enc_norm``, and each
+decoder layer adds a cross-attention sub-layer (``xattn``: its
+attention parameters and the ``lnx`` norm, stacked one a layer) between
+the self-attention and the MLP; prefill keeps the encoder output in the
+decode state (``enc_out``) for the decode steps.
 """
 from __future__ import annotations
 
@@ -32,16 +40,6 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 Params = dict
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a config the port does not run yet: an encoder-decoder
-    or one with a modality frontend (audio, vlm)."""
-    if cfg.enc_dec or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; the port "
-            "runs the dense, moe, ssm and hybrid LMs (the enc-dec audio "
-            "and vlm families: ROADMAP queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -69,23 +67,32 @@ def _init_slot(gen: torch.Generator, cfg: ModelConfig, j: int,
     return p
 
 
+def _stack_slots(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
+                 dtype) -> Params:
+    """``n_layers`` layers as ``{"slots": [...]}``, one slot a position
+    in the period (the reference's ``_stack_layers``)."""
+    n_blocks = n_layers // cfg.block_period
+    return {"slots": [_init_slot(gen, cfg, j, n_blocks, dtype)
+                      for j in range(cfg.block_period)]}
+
+
 def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
                 device=None) -> Params:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``,
     in the reference's tree: ``embed``, ``final_norm``,
     ``blocks["slots"][j]`` (``ln1``, ``ln2``, ``attn`` or ``mamba``,
-    ``moe`` or ``mlp`` where the layer has one), and ``unembed`` unless
-    the embeddings are tied. The numbers differ from the reference's
-    (another generator); ``weights.params_from_numpy`` carries the
-    reference's own."""
-    require_ported(cfg)
+    ``moe`` or ``mlp`` where the layer has one), ``unembed`` unless
+    the embeddings are tied, and for an enc-dec config ``enc_blocks``
+    (``n_enc_layers`` deep), ``enc_norm`` and ``xattn`` (``{"xattn":
+    attention, "lnx": norm}`` stacked on ``[n_layers]``). The numbers
+    differ from the reference's (another generator);
+    ``weights.params_from_numpy`` carries the reference's own."""
     if cfg.n_layers % cfg.block_period:
         raise ValueError(
             f"{cfg.name}: n_layers {cfg.n_layers} not divisible by "
             f"block period {cfg.block_period}")
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
-    n_blocks = cfg.n_layers // cfg.block_period
     p: Params = {
         # padded_vocab: the reference's TP-shardable tables; sampling
         # masks the pad
@@ -93,12 +100,19 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
                            0.02),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                   device=gen.device),
-        "blocks": {"slots": [_init_slot(gen, cfg, j, n_blocks, dtype)
-                             for j in range(cfg.block_period)]},
+        "blocks": _stack_slots(gen, cfg, cfg.n_layers, dtype),
     }
     if not cfg.tie_embeddings:
         p["unembed"] = L._normal(gen, (cfg.padded_vocab, cfg.d_model), dtype,
                                  1.0 / math.sqrt(cfg.d_model))
+    if cfg.enc_dec:
+        p["enc_blocks"] = _stack_slots(gen, cfg, cfg.n_enc_layers, dtype)
+        p["enc_norm"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                    device=gen.device)
+        p["xattn"] = {
+            "xattn": L.init_attention(gen, cfg, dtype, (cfg.n_layers,)),
+            "lnx": torch.zeros((cfg.n_layers, cfg.d_model),
+                               dtype=torch.float32, device=gen.device)}
     return p
 
 
@@ -113,11 +127,12 @@ class DecodeState(NamedTuple):
     ``ssm[j] = None``; a Mamba slot has ``kv[j] = None`` and ``ssm[j] =
     (ssm_state [n_blocks, B, nh, ds, hd] f32, conv_state [n_blocks, B,
     d_conv - 1, di + 2 ds])``, whose shapes do not depend on the
-    history. The reference's ``enc_out`` belongs to the enc-dec family,
-    which the port does not run."""
+    history. ``enc_out`` is the enc-dec encoder's output [B, S_enc, d]
+    that every decode step's cross-attention reads (None otherwise)."""
     kv: Any           # list per slot: (k, v) or None
     ssm: Any          # list per slot: (ssm_state, conv_state) or None
     pos: int          # next write position
+    enc_out: Any = None
 
 
 def _block_params(tree, i: int):
@@ -127,25 +142,41 @@ def _block_params(tree, i: int):
     return tree[i]
 
 
+def _layer_params(slot, xattn, bi: int):
+    """Block ``bi``'s parameters of a slot, with block ``bi``'s
+    cross-attention (``xattn``, stacked one a layer: the reference's
+    enc-dec has a period of 1) merged in where there is one."""
+    p = _block_params(slot, bi)
+    if xattn is not None:
+        p.update(_block_params(xattn, bi))
+    return p
+
+
 def _apply_layer(pl_, x, cfg, i_in_period, positions, cache=None,
-                 cache_pos=None):
-    """One layer (attention-or-mamba, then mlp-or-moe). ``cache`` is the
-    layer's ``(kv, ssm)`` pair in decode, else None. Returns (x,
-    new_cache, aux): new_cache is ``((k, v), None)`` or ``(None,
-    (ssm_state, conv_state))``, aux the MoE's aux loss (None without a
-    MoE)."""
+                 cache_pos=None, enc_out=None, causal=True):
+    """One layer (attention-or-mamba, then with ``enc_out`` the
+    cross-attention on it, then mlp-or-moe). ``cache`` is the layer's
+    ``(kv, ssm)`` pair in decode, else None; ``causal`` the
+    self-attention's mask without a cache. Returns (x, new_cache, aux):
+    new_cache is ``((k, v), None)`` or ``(None, (ssm_state,
+    conv_state))``, aux the MoE's aux loss (None without a MoE)."""
     h = L.rms_norm(x, pl_["ln1"], cfg.norm_eps)
     if "attn" in pl_:
         a, kv = L.attention(pl_["attn"], h, cfg, positions,
                             local=cfg.is_local_layer(i_in_period),
                             cache=None if cache is None else cache[0],
-                            cache_pos=cache_pos)
+                            cache_pos=cache_pos, causal=causal)
         new_cache = (kv, None)
     else:
         a, ssm = L.mamba_block(pl_["mamba"], h, cfg,
                                state=None if cache is None else cache[1])
         new_cache = (None, ssm)
     x = x + a
+    if enc_out is not None:
+        xa, _ = L.attention(pl_["xattn"],
+                            L.rms_norm(x, pl_["lnx"], cfg.norm_eps), cfg,
+                            positions, local=False, xattn_kv=enc_out)
+        x = x + xa
     aux = None
     if "moe" in pl_:
         mo, aux = L.moe(pl_["moe"], L.rms_norm(x, pl_["ln2"], cfg.norm_eps),
@@ -160,13 +191,14 @@ def _add_aux(total, aux):
     return total if aux is None else (aux if total is None else total + aux)
 
 
-def _super_block(slots, bi: int, x, cfg, positions):
+def _super_block(slots, bi: int, x, cfg, positions, xattn=None,
+                 enc_out=None, causal=True):
     """The layers of super-block ``bi`` (no caches) -> (x, aux or
     None)."""
     aux = None
     for j in range(len(slots)):
-        x, _, a = _apply_layer(_block_params(slots[j], bi), x, cfg, j,
-                               positions)
+        x, _, a = _apply_layer(_layer_params(slots[j], xattn, bi), x, cfg,
+                               j, positions, enc_out=enc_out, causal=causal)
         aux = _add_aux(aux, a)
     return x, aux
 
@@ -175,12 +207,15 @@ def _stacked_like(n_blocks: int, t: torch.Tensor) -> torch.Tensor:
     return torch.empty((n_blocks, *t.shape), dtype=t.dtype, device=t.device)
 
 
-def _run_blocks(blocks, x, cfg, positions,
-                decode_state: DecodeState | None = None,
+def _run_blocks(blocks, x, cfg, positions, xattn=None, enc_out=None,
+                decode_state: DecodeState | None = None, causal=True,
                 collect_caches: bool = False, remat: bool = False):
     """Loop over super-blocks. Returns (x, new_decode_state, aux): aux
     is the MoE layers' summed aux loss, or None for a model without MoE
-    layers.
+    layers. With ``xattn`` (the decoder's cross-attention parameters,
+    stacked one a layer) and ``enc_out`` every layer cross-attends to
+    ``enc_out``; ``causal`` is the self-attention's mask without a cache
+    (the encoder's is not).
 
     With ``decode_state`` each layer writes its slice of the stacked
     caches in place (KV at ``pos``; the SSM and conv states replaced);
@@ -192,12 +227,15 @@ def _run_blocks(blocks, x, cfg, positions,
     slots = blocks["slots"]
     period = len(slots)
     n_blocks = slots[0]["ln1"].shape[0]
+    if xattn is not None and period != 1:
+        raise ValueError(f"{cfg.name}: cross-attention is stacked one a "
+                         f"layer; a block period of {period} is not taken")
     aux = None
     if remat and decode_state is None and not collect_caches:
         for bi in range(n_blocks):
             x, a = torch.utils.checkpoint.checkpoint(
-                _super_block, slots, bi, x, cfg, positions,
-                use_reentrant=False)
+                _super_block, slots, bi, x, cfg, positions, xattn, enc_out,
+                causal, use_reentrant=False)
             aux = _add_aux(aux, a)
         return x, None, aux
     kv, ssm = [None] * period, [None] * period
@@ -211,9 +249,10 @@ def _run_blocks(blocks, x, cfg, positions,
                                     (c[j][0][bi], c[j][1][bi])
                                     for c in (kv, ssm))
             x, new_cache, a = _apply_layer(
-                _block_params(slots[j], bi), x, cfg, j, positions,
+                _layer_params(slots[j], xattn, bi), x, cfg, j, positions,
                 cache=layer_cache,
-                cache_pos=None if decode_state is None else decode_state.pos)
+                cache_pos=None if decode_state is None else decode_state.pos,
+                enc_out=enc_out, causal=causal)
             aux = _add_aux(aux, a)
             if decode_state is None and not collect_caches:
                 continue
@@ -233,14 +272,32 @@ def _run_blocks(blocks, x, cfg, positions,
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Token embeddings [B, S, d], scaled by sqrt(d) in the parameter
-    type."""
-    return params["embed"][batch["tokens"]] * math.sqrt(cfg.d_model)
+    """The decoder's input [B, S, d]: token embeddings scaled by sqrt(d)
+    in the parameter type, after a vlm's ``prefix_embeds`` (cast to that
+    type) where the batch has them; an audio config that is not enc-dec
+    takes ``frames`` as they are."""
+    emb_scale = math.sqrt(cfg.d_model)
+    if cfg.frontend == "vision" and "prefix_embeds" in batch:
+        tok = params["embed"][batch["tokens"]] * emb_scale
+        return torch.cat([batch["prefix_embeds"].to(tok.dtype), tok], dim=1)
+    if cfg.frontend == "audio" and not cfg.enc_dec:
+        return batch["frames"]
+    return params["embed"][batch["tokens"]] * emb_scale
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].repeat(
         b, 1)
+
+
+def _encode(params, cfg: ModelConfig, frames: torch.Tensor):
+    """The enc-dec encoder: its blocks over ``frames`` [B, S_enc, d],
+    non-causal, then ``enc_norm``. Runs in the type ``frames`` and the
+    weights promote to (f32 frames: f32, as in the reference)."""
+    b, s, _ = frames.shape
+    x, _, _ = _run_blocks(params["enc_blocks"], frames, cfg,
+                          _positions(b, s, frames.device), causal=False)
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -253,12 +310,15 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def forward(params, cfg: ModelConfig, batch: dict, remat: bool = False):
     """Full-sequence forward -> (logits [B, S, V], aux loss): the MoE
     layers' aux losses summed, or an f32 zero for a model without
-    them."""
-    require_ported(cfg)
+    them. An enc-dec config runs its encoder over ``batch["frames"]``
+    first (never rematerialised, as in the reference)."""
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
+    enc_out = _encode(params, cfg, batch["frames"]) if cfg.enc_dec else None
     x, _, aux = _run_blocks(params["blocks"], x, cfg,
-                            _positions(b, s, x.device), remat=remat)
+                            _positions(b, s, x.device),
+                            xattn=params.get("xattn"), enc_out=enc_out,
+                            remat=remat)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, cfg, x), aux
@@ -266,10 +326,13 @@ def forward(params, cfg: ModelConfig, batch: dict, remat: bool = False):
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = False):
     """Causal LM cross-entropy (mean over tokens) + 0.01 x the aux loss,
-    as the reference: the padded vocab columns masked out of the
-    partition function, logsumexp and the label's logit in f32."""
+    as the reference: a vlm's prefix rows left out, the padded vocab
+    columns masked out of the partition function, logsumexp and the
+    label's logit in f32."""
     logits, aux = forward(params, cfg, batch, remat=remat)
     labels = batch["labels"]
+    if cfg.frontend == "vision" and "prefix_embeds" in batch:
+        logits = logits[:, batch["prefix_embeds"].shape[1]:]
     if cfg.padded_vocab != cfg.vocab:
         col = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(col < cfg.vocab, logits, -1e30)
@@ -286,12 +349,12 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = False):
 
 
 def init_decode_state(cfg: ModelConfig, batch_size: int, max_seq: int,
-                      dtype=torch.bfloat16, device=None) -> DecodeState:
+                      dtype=torch.bfloat16, device=None,
+                      enc_out=None) -> DecodeState:
     """Zero caches for ``batch_size`` sequences of up to ``max_seq``
     positions: KV in ``dtype`` for attention slots; for Mamba slots the
     SSM state in f32 and the conv state in ``dtype``, both independent
-    of ``max_seq``."""
-    require_ported(cfg)
+    of ``max_seq``; ``enc_out`` as given."""
     dev = resolve_device(device)
     n_blocks = cfg.n_layers // cfg.block_period
     kv, ssm = [], []
@@ -311,7 +374,7 @@ def init_decode_state(cfg: ModelConfig, batch_size: int, max_seq: int,
                                     dtype=torch.float32, device=dev),
                         torch.zeros((n_blocks, batch_size, mc.d_conv - 1,
                                      di + 2 * ds), dtype=dtype, device=dev)))
-    return DecodeState(kv=kv, ssm=ssm, pos=0)
+    return DecodeState(kv=kv, ssm=ssm, pos=0, enc_out=enc_out)
 
 
 def decode_step(params, cfg: ModelConfig, state: DecodeState,
@@ -320,12 +383,14 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState,
 
     The caches of ``state`` are written in place (KV at position
     ``state.pos``, the SSM and conv states replaced); the returned state
-    holds the same caches with ``pos + 1``."""
-    require_ported(cfg)
+    holds the same caches with ``pos + 1`` (and an enc-dec's
+    ``enc_out``, which the cross-attention reads)."""
     x = params["embed"][tokens][:, None, :] * math.sqrt(cfg.d_model)
     positions = torch.full((x.shape[0], 1), state.pos, dtype=torch.int32,
                            device=x.device)
+    enc_out = state.enc_out if cfg.enc_dec else None
     x, new_state, _ = _run_blocks(params["blocks"], x, cfg, positions,
+                                  xattn=params.get("xattn"), enc_out=enc_out,
                                   decode_state=state)
     return _logits(params, cfg, x)[:, 0], new_state
 
@@ -334,13 +399,16 @@ def prefill(params, cfg: ModelConfig, batch: dict):
     """Full-sequence forward that also builds the decode caches.
 
     Returns (last-token logits [B, V], DecodeState with kv caches of
-    length S, the SSM and conv handoff states, and pos = S) — the
-    serving prefill step.
+    length S (a vlm's prefix rows included), the SSM and conv handoff
+    states, pos = S, and an enc-dec's encoder output) — the serving
+    prefill step.
     """
-    require_ported(cfg)
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
+    enc_out = _encode(params, cfg, batch["frames"]) if cfg.enc_dec else None
     x, state, _ = _run_blocks(params["blocks"], x, cfg,
                               _positions(b, s, x.device),
+                              xattn=params.get("xattn"), enc_out=enc_out,
                               collect_caches=True)
-    return _logits(params, cfg, x[:, -1:])[:, 0], state
+    return (_logits(params, cfg, x[:, -1:])[:, 0],
+            state._replace(enc_out=enc_out))

@@ -649,6 +649,11 @@ FLASH_CASES = [
     (3, 2, 500, 8, 2, 37, True, 200, 50.0, 400, 450),         # hd 37: split
     (1, 256, 512, 64, 8, 112, True, None, None, 256, None),   # kimi-k2: tc
     (2, 1, 700, 64, 8, 112, False, None, None, 650, 651),     # kimi-k2: split
+    (4, 1500, 1500, 6, 6, 64, False, None, None, 0, None),    # whisper encoder
+    (4, 32, 1500, 6, 6, 64, False, None, None, 0, None),      # cross-attention
+    (4, 1, 1500, 6, 6, 64, False, None, None, 0, None),       # cross, decode
+    (1, 608, 608, 56, 8, 128, True, None, None, 0, None),     # llava g=7: tc
+    (2, 1, 700, 56, 8, 128, False, None, None, 650, 651),     # llava g=7: split
 ]
 
 
@@ -870,17 +875,33 @@ def test_cuda_serve_matches_cpu_serve(cuda):
         torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
 
 
-FAMILIES = ["kimi_k2", "mamba2_27b", "jamba_15_large"]
+FAMILIES = ["kimi_k2", "mamba2_27b", "jamba_15_large", "llava_next_34b",
+            "whisper_tiny"]
+
+
+def _family_inputs(cfg, b, rng):
+    """The non-token inputs of a batch: a vlm's image prefix rows (at
+    the token embeddings' scale), an enc-dec's frames (unit normal)."""
+    if cfg.frontend == "vision":
+        return {"prefix_embeds": torch.from_numpy(rng.normal(
+            0, 0.02 * np.sqrt(cfg.d_model),
+            (b, cfg.num_prefix_embeds, cfg.d_model)).astype(np.float32))}
+    if cfg.enc_dec:
+        return {"frames": torch.from_numpy(rng.normal(
+            0, 1, (b, cfg.enc_seq, cfg.d_model)).astype(np.float32))}
+    return {}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_cuda_family_serve_matches_cpu_serve(cuda, arch):
-    """Reduced kimi-k2 (moe), mamba2-2.7b (ssm) and jamba-1.5 (hybrid)
-    in f32: the card's forward (logits and aux loss), prefill and eight
-    teacher-forced decode steps give the CPU's logits within 2e-3 (the
-    CPU tests' model tolerance); generate runs on the card, its
-    attention (kimi-k2, jamba) through the flash kernel."""
+    """Reduced kimi-k2 (moe), mamba2-2.7b (ssm), jamba-1.5 (hybrid),
+    llava-next-34b (vlm: image prefix rows before the tokens) and
+    whisper-tiny (enc-dec: encoder, cross-attention) in f32: the card's
+    forward (logits and aux loss), prefill and eight teacher-forced
+    decode steps give the CPU's logits within 2e-3 (the CPU tests' model
+    tolerance); generate runs on the card, its attention (all but
+    mamba2) through the flash kernel."""
     from repro_torch import configs
     from repro_torch.kernels import flash as t_flash
     from repro_torch.launch import serve
@@ -889,10 +910,14 @@ def test_cuda_family_serve_matches_cpu_serve(cuda, arch):
     cfg = reduced(configs.get(arch))
     params = T.init_params(0, cfg, dtype=torch.float32, device="cpu")
     params_gpu = _to(params, cuda)
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab, size=(2, 16)).astype(np.int32))
-    lg, ag = T.forward(params_gpu, cfg, {"tokens": tokens.to(cuda)})
-    lc, ac = T.forward(params, cfg, {"tokens": tokens})
+    extra = _family_inputs(cfg, 2, rng)
+    extra_gpu = _to(extra, cuda)
+    lg, ag = T.forward(params_gpu, cfg, {"tokens": tokens.to(cuda),
+                                         **extra_gpu})
+    lc, ac = T.forward(params, cfg, {"tokens": tokens, **extra})
     torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
     torch.testing.assert_close(ag.cpu(), ac, rtol=2e-3, atol=2e-3)
     before = t_flash.flash_attention_fused.launches
@@ -900,8 +925,9 @@ def test_cuda_family_serve_matches_cpu_serve(cuda, arch):
     assert out.shape == (2, 5)
     assert (t_flash.flash_attention_fused.launches > before) == \
         (cfg.family != "ssm")
-    lg, sg = T.prefill(params_gpu, cfg, {"tokens": tokens[:, :8].to(cuda)})
-    lc, sc = T.prefill(params, cfg, {"tokens": tokens[:, :8]})
+    lg, sg = T.prefill(params_gpu, cfg, {"tokens": tokens[:, :8].to(cuda),
+                                         **extra_gpu})
+    lc, sc = T.prefill(params, cfg, {"tokens": tokens[:, :8], **extra})
     torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
     sg, sc = serve._grow_caches(sg, 8), serve._grow_caches(sc, 8)
     for t in range(8, 16):

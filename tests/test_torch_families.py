@@ -237,8 +237,3 @@ def test_init_decode_state_matches_the_reference(model):
     _close_caches(got, want)
     assert got.pos == int(want.pos) == 0
 
-
-def test_vlm_and_audio_still_raise():
-    for arch in ("llava_next_34b", "whisper_tiny"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.forward({}, t_reduced(t_configs.get(arch)), {})

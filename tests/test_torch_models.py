@@ -174,11 +174,14 @@ def test_bf16_params_cross_bit_for_bit():
 
 
 @pytest.mark.parametrize("arch", ["qwen15_32b", "kimi_k2", "mamba2_27b",
-                                  "jamba_15_large"])
+                                  "jamba_15_large", "llava_next_34b",
+                                  "whisper_tiny"])
 def test_port_init_params_tree_matches_reference(arch):
     """The port's own ``init_params`` gives the reference's tree: the
     same paths, shapes and dtypes (the moe router in f32, Mamba's
-    ``A_log``, ``D``, ``dt_bias`` and ``norm`` in f32)."""
+    ``A_log``, ``D``, ``dt_bias`` and ``norm`` in f32, whisper's
+    ``enc_blocks``, ``enc_norm`` and ``xattn`` stacked on its
+    layers)."""
     cfg_j, cfg_t = _configs(arch)
     want = jax.eval_shape(lambda: JT.init_params(jax.random.PRNGKey(0),
                                                  cfg_j, jnp.bfloat16))
@@ -202,9 +205,3 @@ def test_port_init_params_tree_matches_reference(arch):
         assert tuple(flat_t[k].shape) == x.shape, k
         assert str(flat_t[k].dtype).split(".")[-1] == str(x.dtype), k
 
-
-@pytest.mark.parametrize("arch", ["whisper_tiny", "llava_next_34b"])
-def test_other_families_raise(arch):
-    cfg = t_reduced(t_configs.get(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(0, cfg, device="cpu")
