@@ -66,6 +66,17 @@ bfloat16 and uint8 payloads), then drives the main paths:
   dropped entries exactly) and mamba2-2.7b whole (``phase_serve_ssm``:
   64 Mamba2 layers, no kernel of the port on its path), each with its
   logits checked against a teacher-forced forward and planted faults;
+* the mesh paths, emulated on a leading rank axis of one card: kimi-k2
+  served on the production mesh (data 16 x model 16, the plans of
+  ``launch.steps.plan_for_cell``; ``phase_serve_mesh``, with
+  ``phase_serve_moe``'s weights: ``moe_sharded`` in both forms and
+  ``decode_attention_sharded``, each checked against the CPU in f32, the
+  unsharded path and the ``split_decode`` kernel, with planted faults,
+  and the dispatch buckets through ``two_layer_all_to_all``), the
+  two-layer gradient sync of every gemma2-9b training leaf on a (pod 2,
+  ici 4) grid (``phase_collectives``) and a 4-stage GPipe pipeline of
+  gemma2-9b blocks equal to sequential application bit for bit
+  (``phase_pipeline``, its stages on ``tc_prefill``);
 * serving of the vlm and audio families: llava-next-34b at full width
   and depth (60 layers, 68.78 GB of bf16 weights; ``phase_serve_vlm``:
   the same traffic with 576 image prefix rows before the long prompt,
@@ -1647,24 +1658,26 @@ def counted(torch, dev, fn):
 
 
 def served_request(torch, dev, cfg, params, batch, gen_len, run,
-                   watch=contextlib.nullcontext, checks=lambda: None):
+                   watch=contextlib.nullcontext, checks=lambda: None,
+                   plan=None, decode_plan=None):
     """One request as the reference's tests drive one: a warm-up prefill
     of ``batch`` under ``watch()`` (to capture a layer's inputs), then
     ``checks()`` (so that the counted run holds no captured tensor),
     then the counted run: the prefill and ``gen_len`` greedy decode
     steps, every launch count set to 0 just before it and read just
-    after. Returns (record, picked tokens ``[B, gen_len]``, served logit
-    rows ``[B, gen_len + 1, V]``: the prefill's last row, then each
-    decode step's)."""
+    after. ``plan`` and ``decode_plan`` are the prefill's and the decode
+    steps' sharding plans (none: one device). Returns (record, picked
+    tokens ``[B, gen_len]``, served logit rows ``[B, gen_len + 1, V]``:
+    the prefill's last row, then each decode step's)."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     with watch():
-        T.prefill(params, cfg, batch)                       # warm-up
+        T.prefill(params, cfg, batch, plan=plan)            # warm-up
     checks()
     picked, rows = [], []
 
     def run_it():
-        logits, state = T.prefill(params, cfg, batch)
+        logits, state = T.prefill(params, cfg, batch, plan=plan)
         rows.append(logits)
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1672,7 +1685,8 @@ def served_request(torch, dev, cfg, params, batch, gen_len, run,
         tok = serve.pick(logits, cfg.vocab)
         for _ in range(gen_len):
             picked.append(tok)
-            logits, state = T.decode_step(params, cfg, state, tok)
+            logits, state = T.decode_step(params, cfg, state, tok,
+                                          plan=decode_plan)
             rows.append(logits)
             tok = serve.pick(logits, cfg.vocab)
         return t
@@ -1697,14 +1711,15 @@ def served_request(torch, dev, cfg, params, batch, gen_len, run,
 
 def serve_traffic(torch, dev, cfg, params, watch=contextlib.nullcontext,
                   checks=lambda: None, long_extra=None, long_len=None,
-                  long_gen=None):
+                  long_gen=None, plan=None, decode_plan=None):
     """The serving cells of ``phase_serve`` on another model: (a)
     ``serve.generate`` at ``GEN`` (batch 4, prompt 32, 16 new tokens),
     then its prefill (``serve.request_batch``) and decode loop timed
     apart; (b) ``served_request`` of a batch-1 prompt of ``long_len``
     (default ``LONG_PROMPT``) tokens (with ``long_extra``'s inputs: a
     vlm's prefix, an enc-dec's frames) and ``long_gen`` (default 16)
-    greedy decode steps. Each
+    greedy decode steps; ``plan`` and ``decode_plan`` are the prefills'
+    and the decode steps' sharding plans (none: one device). Each
     counted run follows a warm-up, with every launch count set to 0 just
     before it and read just after; (b)'s warm-up prefill runs under
     ``watch()`` and ``checks()`` runs after it. Returns the two runs'
@@ -1719,19 +1734,22 @@ def serve_traffic(torch, dev, cfg, params, watch=contextlib.nullcontext,
 
     prompts = torch.randint(0, cfg.vocab, (batch, plen), generator=gen,
                             device=dev, dtype=torch.int32)
-    serve.generate(params, cfg, prompts, gen_len)          # warm-up
+    plans = dict(plan=plan, decode_plan=decode_plan)
+    serve.generate(params, cfg, prompts, gen_len, **plans)  # warm-up
     out, gen_ms, launches_a, routes_a, peak_a = counted(
-        torch, dev, lambda: serve.generate(params, cfg, prompts, gen_len))
+        torch, dev, lambda: serve.generate(params, cfg, prompts, gen_len,
+                                           **plans))
     require(tuple(out.shape) == (batch, gen_len + 1)
             and bool(((out >= 0) & (out < cfg.vocab)).all()),
             f"{cfg.name} generate: tokens {tuple(out.shape)} out of range")
     (_, state), prefill_ms = synced(torch, lambda: T.prefill(
-        params, cfg, serve.request_batch(cfg, prompts)))
+        params, cfg, serve.request_batch(cfg, prompts), plan=plan))
     state = serve._grow_caches(state, gen_len)
 
     def decode_loop(state, tok, n):
         for _ in range(n):
-            logits, state = T.decode_step(params, cfg, state, tok)
+            logits, state = T.decode_step(params, cfg, state, tok,
+                                          plan=decode_plan)
             tok = serve.pick(logits, cfg.vocab)
         return state
     _, decode_ms = synced(torch, lambda: decode_loop(state, out[:, 0],
@@ -1754,42 +1772,51 @@ def serve_traffic(torch, dev, cfg, params, watch=contextlib.nullcontext,
     long_gen = gen_len if long_gen is None else long_gen
     rec_b, picked, served = served_request(
         torch, dev, cfg, params, long_batch, long_gen, "long_prompt", watch,
-        checks)
+        checks, **plans)
     return {"records": (rec_a, rec_b), "prompts": prompts, "prompt": prompt,
             "long_batch": long_batch, "long_gen": long_gen,
             "picked": picked, "served": served}
 
 
 def serve_profiles(torch, layers, cfg, params, traffic, what, prefill_routes,
-                   decode_routes):
+                   decode_routes, plan=None, decode_plan=None):
     """The ``profile`` lines of a serving phase (after its counts are
     read): ``generate``, the long request's prefill, and its first
     ``GEN[2]`` decode steps (reading a profile back costs about a
     millisecond an event: whisper's 448 steps took 183 s on an H100
     host); the prefill's and the decode's flash launches must be
-    ``prefill_routes`` and ``decode_routes``."""
+    ``prefill_routes`` and ``decode_routes``; ``plan`` and
+    ``decode_plan`` as ``serve_traffic``'s. Returns the three profile
+    records."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     batch = traffic["long_batch"]
     gen_len = min(traffic["long_gen"], GEN[2])
     plen = batch["tokens"].shape[1]
+    profs = {"generate": profile_serve(
+        torch, layers, lambda *a: serve.generate(
+            *a, plan=plan, decode_plan=decode_plan),
+        (params, cfg, traffic["prompts"], GEN[2]))}
     emit({"phase": "profile", "method": f"{what}_generate",
-          **profile_serve(torch, layers, serve.generate,
-                          (params, cfg, traffic["prompts"], GEN[2]))})
-    prof = profile_serve(torch, layers, T.prefill, (params, cfg, batch))
+          **profs["generate"]})
+    prof = profile_serve(torch, layers, lambda *a: T.prefill(*a, plan=plan),
+                         (params, cfg, batch))
+    profs["prefill"] = prof
     emit({"phase": "profile", "method": f"{what}_prefill_{plen}", **prof})
     require(prof["flash_launches_by_route"] == prefill_routes,
             f"{what} prefill: {prof['flash_launches_by_route']}, expected "
             f"{prefill_routes}")
-    _, state = T.prefill(params, cfg, batch)
+    _, state = T.prefill(params, cfg, batch, plan=plan)
     state = serve._grow_caches(state, gen_len)
 
     def decode_loop(state, tok):
         for _ in range(gen_len):
-            logits, state = T.decode_step(params, cfg, state, tok)
+            logits, state = T.decode_step(params, cfg, state, tok,
+                                          plan=decode_plan)
             tok = serve.pick(logits, cfg.vocab)
     prof = profile_serve(torch, layers, decode_loop,
                          (state, traffic["picked"][:, 0]))
+    profs["decode"] = prof
     emit({"phase": "profile",
           "method": f"{what}_decode_{gen_len}_at_{plen}", **prof})
     require(prof["flash_launches_by_route"] == decode_routes,
@@ -1797,6 +1824,7 @@ def serve_profiles(torch, layers, cfg, params, traffic, what, prefill_routes,
             f"{decode_routes}")
     del state
     torch.cuda.empty_cache()
+    return profs
 
 
 def param_record(cfg, params) -> dict:
@@ -1822,7 +1850,7 @@ def cpu_f32(torch, t, chunk):
     return out
 
 
-def moe_check(torch, layers, cfg, p, x) -> dict:
+def moe_check(torch, layers, cfg, p, x, keep=None) -> dict:
     """The MoE layer of the long prefill (its parameters ``p`` and input
     ``x``, captured) on the card in bf16 against the same call,
     ``layers.moe``, on the CPU in f32 (the weights converted exactly).
@@ -1835,7 +1863,9 @@ def moe_check(torch, layers, cfg, p, x) -> dict:
     gated sum), and an element of the expert output sums 2048 products
     of rounded terms; the reading against 8e-3 is printed beside. A
     planted fault, the layer run with top-k one short (a token loses its
-    last expert and its gates renormalise), must fail the limits."""
+    last expert and its gates renormalise), must fail the limits. With
+    ``keep``, the host's f32 copy of the weights stays in
+    ``keep["p_h"]`` for the mesh'd checks (``mesh_moe_check``)."""
     import dataclasses
     import gc
     n, d = x.shape[0] * x.shape[1], x.shape[-1]
@@ -1852,6 +1882,8 @@ def moe_check(torch, layers, cfg, p, x) -> dict:
     out_h, aux_h = layers.moe(p_h, x_h, cfg)
     cpu_s = time.perf_counter() - t0
     route_h = layers.moe_route(p_h, x_h.reshape(n, d), cfg)
+    if keep is not None:
+        keep["p_h"] = p_h
     del p_h, x_h
     gc.collect()
     want = out_h.to(out_c.dtype)
@@ -1907,8 +1939,9 @@ def phase_serve_moe(torch, dev):
     planted fault) must not be; the attention of the long prefill's
     layer against the plain version (``layer_checks``); and the MoE
     layer of the long prefill against the same call on the CPU in f32
-    (``moe_check``). Returns the launches and flash routes of the two
-    counted runs."""
+    (``moe_check``). Then ``phase_serve_mesh`` serves the same weights
+    on the emulated production mesh, reusing the host's f32 copy.
+    Returns the launches and flash routes of the four counted runs."""
     import dataclasses
     from repro_torch import configs, kernels
     from repro_torch.kernels import ops, ref
@@ -1941,7 +1974,7 @@ def phase_serve_moe(torch, dev):
         layer_checks(ops, ref, captured, "serve_moe_layer_checks",
                      ("global",))
         p, x = moe_in.pop()
-        found["moe"] = moe_check(torch, layers, cfg, p, x)
+        found["moe"] = moe_check(torch, layers, cfg, p, x, keep=found)
         found["prefill_drops"] = layers.moe_route(
             p, x.reshape(-1, cfg.d_model), cfg).dropped().any(-1)
         captured.clear()
@@ -2009,12 +2042,19 @@ def phase_serve_moe(torch, dev):
     require(planted_vs_kern["rel_l2"] > KIMI_REL_L2,
             f"a forward without the causal mask passes: {planted_vs_kern}")
     torch.cuda.empty_cache()
-    serve_profiles(torch, layers, cfg, params, traffic, "serve_moe",
-                   route_counts(tc_prefill=cfg.n_layers),
-                   route_counts(split_decode=gen_len * cfg.n_layers))
-    del params, traffic
+    profs = serve_profiles(torch, layers, cfg, params, traffic, "serve_moe",
+                           route_counts(tc_prefill=cfg.n_layers),
+                           route_counts(split_decode=gen_len * cfg.n_layers))
+    del traffic
     torch.cuda.empty_cache()
-    return traffic_counts(rec_a, rec_b)
+    counts, routes = traffic_counts(rec_a, rec_b)
+    mesh_counts, mesh_routes = phase_serve_mesh(
+        torch, dev, cfg, params, found,
+        {"generate": rec_a, "long_prompt": rec_b, "profiles": profs})
+    del params, found
+    torch.cuda.empty_cache()
+    return ({k: counts[k] + mesh_counts[k] for k in counts},
+            add_routes(routes, mesh_routes))
 
 
 def traffic_counts(rec_a, rec_b):
@@ -2023,6 +2063,547 @@ def traffic_counts(rec_a, rec_b):
     a, b = rec_a["launches"], rec_b["launches"]
     ra, rb = rec_a["flash_launches_by_route"], rec_b["flash_launches_by_route"]
     return {k: a[k] + b[k] for k in a}, {r: ra[r] + rb[r] for r in ra}
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths on an emulated rank grid: kimi-k2 served on the
+# production mesh, the two-layer gradient sync, the GPipe pipeline
+# ---------------------------------------------------------------------------
+
+MESH_DECODE_DROP_ROWS = 8     # at most this many of 17 rows may differ
+MESH_PIPE = (4, 8, 4096)      # stages, microbatches, tokens a microbatch
+COLLECTIVE_GRID = (2, 4)      # (pod, ici): 8 ranks' gradients
+COLLECTIVE_REL = 1e-6         # two_layer_psum: of max |sum| (f32 order)
+EF_BOUND = 5e-2               # compressed_psum: spmd_checks' bound
+
+
+def mesh_plans():
+    """The production mesh (data 16, model 16) and ``plan_for_cell``'s
+    plans for the served cells: the prefills (4 x 32, 1 x 8192) and the
+    decode steps (against 48 and 8208 positions). The batch does not
+    divide the 16 data ranks in any of them, so every plan drops its
+    data axes; the prefills shard the sequence over the model axis."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.launch.steps import plan_for_cell
+    mesh = make_production_mesh()
+    b, plen, gen_len = GEN
+    cells = (ShapeCell("prefill_4x32", "prefill", plen, b),
+             ShapeCell("prefill_1x8192", "prefill", LONG_PROMPT, 1),
+             ShapeCell("decode_4x48", "decode", plen + gen_len, b),
+             ShapeCell("decode_1x8208", "decode", LONG_PROMPT + gen_len, 1))
+    plans = [plan_for_cell(mesh, c) for c in cells]
+    require(plans[0] == plans[1] and plans[2] == plans[3],
+            f"the served cells' plans differ: {plans}")
+    return mesh, plans[0], plans[2], {
+        c.name: {"data_axes": list(p.data_axes), "shard_seq": p.shard_seq}
+        for c, p in zip(cells, plans)}
+
+
+def recording_moe(store):
+    """A ``patched(layers, "moe", ...)`` wrap that stores each call's
+    ``(p, x, plan)`` and runs it unchanged."""
+    def wrap(moe):
+        def run(p, x, cfg, plan=None):
+            store.append((p, x, plan))
+            return moe(p, x, cfg, plan=plan)
+        return run
+    return wrap
+
+
+def mesh_moe_check(torch, layers, cfg, p, x, plan, p_h, what) -> dict:
+    """A mesh'd MoE layer call (``moe_sharded`` on the emulated ranks)
+    on the card in bf16 against the same call on the CPU in f32 (``p_h``,
+    the weights converted exactly by ``moe_check``): every rank's top-k
+    experts and the slot of every (token, k) entry equal, the dropped
+    ones included; the outputs within ``moe_check``'s limits; the layer
+    run with top-k one short (a planted fault) must fail them."""
+    import dataclasses
+    from repro_torch.models import moe_sharded as MS
+    require(torch.equal(p["router"].float().cpu(), p_h["router"]),
+            f"{what}: the host copy is not this layer's")
+    out_c, aux_c = layers.moe(p, x, cfg, plan=plan)
+    route_c = MS.sharded_route(p, x, cfg, plan)
+    short = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, top_k=cfg.moe.top_k - 1))
+    planted, _ = layers.moe(p, x, short, plan=plan)
+    x_h = x.float().cpu()
+    t0 = time.perf_counter()
+    out_h, aux_h = layers.moe(p_h, x_h, cfg, plan=plan)
+    cpu_s = time.perf_counter() - t0
+    route_h = MS.sharded_route(p_h, x_h, cfg, plan)
+    want = out_h.to(out_c.dtype)
+    got = out_c.cpu()
+    check = attn_err(got, want, MOE_TOL)
+    fault = attn_err(planted.cpu(), want, MOE_TOL)
+    lay = route_c.layout
+    rec = {"what": what, "tokens": list(x.shape[:2]),
+           "ranks": dict(zip(lay.ranks.names, lay.ranks.sizes)),
+           "form": "sequence-sharded" if plan.shard_seq else "decode",
+           "tokens_a_rank": lay.n_loc, "capacity": lay.cap,
+           "experts_a_rank": lay.e_loc,
+           "eids_equal": bool(torch.equal(route_c.eids.cpu(),
+                                          route_h.eids)),
+           "slots_equal": bool(torch.equal(route_c.slot.cpu(),
+                                           route_h.slot)),
+           "dropped_entries": int(route_c.dropped_kept().sum()),
+           "tokens_with_a_drop": int(route_c.token_dropped().sum()),
+           "aux": float(aux_c), "aux_cpu_f32": float(aux_h),
+           "tol": MOE_TOL, "tol_rel_l2": ATTN_REL_L2, **check,
+           "planted_top_k_short": {k: fault[k] for k in (
+               "max_abs_err", "rel_l2", "within")},
+           "cpu_moe_s": cpu_s}
+    emit({"phase": "serve_mesh_moe_check", **rec})
+    require(rec["eids_equal"] and rec["slots_equal"],
+            f"mesh moe {what}: the card's routing differs from the CPU's")
+    require(check["within"], f"mesh moe {what} vs CPU f32: {rec}")
+    require(not fault["within"], f"mesh moe {what}: the planted fault "
+            f"passes: {rec}")
+    return rec
+
+
+def teacher_forced(torch, params, cfg, batch, picked, plan, decode_plan,
+                   store):
+    """The prefill of ``batch`` and a decode step for each of ``picked``
+    ``[1, n]`` under the plans, with every MoE call stored
+    (``recording_moe``): the logit rows ``[1, n + 1, V]``."""
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    with patched(layers, "moe", recording_moe(store)):
+        logits, state = T.prefill(params, cfg, batch, plan=plan)
+        rows = [logits]
+        state = serve._grow_caches(state, picked.shape[1])
+        for t in range(picked.shape[1]):
+            logits, state = T.decode_step(params, cfg, state, picked[:, t],
+                                          plan=decode_plan)
+            rows.append(logits)
+    return torch.stack(rows, dim=1)
+
+
+def without_pmax(pmax):
+    """A planted fault in ``decode_attention_sharded``: each rank's
+    partial softmax keeps its own row max (no ``pmax`` before the
+    merge)."""
+    return lambda x, ranks, axis: x
+
+
+def phase_serve_mesh(torch, dev, cfg, params, found, base):
+    """kimi-k2 served through the mesh paths on the production mesh
+    (``mesh_plans``: data 16 x model 16 = 256 emulated ranks; the data
+    axes drop at batch 4 and 1), with ``phase_serve_moe``'s weights (full
+    width, depth 1) and its host f32 copy (``found["p_h"]``): the MoE
+    layers run ``moe_sharded`` (the sequence-sharded form at prefill,
+    the decode form at decode) and a decode step's attention runs
+    ``decode_attention_sharded`` (plain PyTorch, as the reference's
+    ``jnp``); the prefill's attention stays on ``tc_prefill``. The
+    traffic is ``serve_traffic``'s (4 x 32 + 16, 1 x 8192 + 16), printed
+    beside ``base`` (the unsharded runs' records and profiles).
+
+    Checks, each failing the run: (a) ``mesh_moe_check`` of the long
+    prefill's MoE layer and of a decode step's; (b) the mesh'd logits
+    of the long request (teacher-forced on its picked tokens) against
+    the unsharded path's within ``KIMI_REL_L2`` on the rows that both
+    paths dispatched alike (at depth 1 the KV cache precedes the MoE,
+    so the caches are equal; the rows where the decode form dropped an
+    entry, or the prefill's capacities differ, are left out and
+    counted); (c) ``decode_attention_sharded`` against the
+    ``split_decode`` kernel on the last decode step's query and 8208
+    cache, within the attention limits, where (d) a merge without the
+    ``pmax`` (``without_pmax``) must fail them; (e)
+    ``two_layer_all_to_all`` of the long prefill's dispatch buckets
+    (``[16 ranks, 384, 16, 7168]``) arranged as (pod 2, ici 8) equals
+    the flat transpose bit for bit. Returns the counted runs' launches
+    and flash routes."""
+    from repro_torch import compat
+    from repro_torch.core import hierarchical as H
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers
+    from repro_torch.models import moe_sharded as MS
+    mesh, plan, dplan, cells = mesh_plans()
+    gen_len = GEN[2]
+    emit({"phase": "serve_mesh_setup", "config": cfg.name,
+          "mesh": mesh.shape, "ranks": mesh.size, "cells": cells,
+          "layers": cfg.n_layers})
+    seen = []
+
+    def checks():
+        p, x, pl = seen.pop()
+        require(pl is plan, "the long prefill's MoE ran another plan")
+        found["mesh_prefill"] = (p, x)
+        found["mesh_moe"] = mesh_moe_check(torch, layers, cfg, p, x, plan,
+                                           found["p_h"], "long_prefill")
+        torch.cuda.empty_cache()
+    traffic = serve_traffic(
+        torch, dev, cfg, params,
+        lambda: patched(layers, "moe", recording_moe(seen)), checks,
+        plan=plan, decode_plan=dplan)
+    rec_a, rec_b = traffic["records"]
+    per_run = route_counts(tc_prefill=cfg.n_layers)
+    for rec, name in ((rec_a, "generate"), (rec_b, "long_prompt")):
+        unsharded = base[name]
+        emit({"phase": "serve_mesh", **rec, "unsharded": {
+            k: unsharded.get(k) for k in (
+                "prefill_ms", "decode_ms_per_step", "generate_ms",
+                "tokens_per_s", "decode_tokens_per_s", "peak_mem_bytes")}})
+        require(rec["flash_launches_by_route"] == per_run,
+                f"serve_mesh {rec['run']}: flash routes "
+                f"{rec['flash_launches_by_route']}, expected {per_run}")
+
+    # (b) mesh'd vs unsharded logits, teacher-forced on the same tokens;
+    # (c), (d): the last decode step's sharded attention vs the kernel
+    batch = {"tokens": traffic["prompt"]}
+    picked = traffic["picked"]
+    attn_in = {}
+
+    def capture_attention(fn):
+        def run(q, k, v, **kw):
+            attn_in["last"] = (q, k, v, kw)
+            return fn(q, k, v, **kw)
+        return run
+    mesh_moe, flat_moe = [], []
+    with patched(layers, "decode_attention_sharded", capture_attention):
+        rows_mesh = teacher_forced(torch, params, cfg, batch, picked, plan,
+                                   dplan, mesh_moe)
+    rows_flat = teacher_forced(torch, params, cfg, batch, picked, None, None,
+                               flat_moe)
+    served_equal = bool(torch.equal(rows_mesh, traffic["served"]))
+    mesh_lost = [MS.sharded_route(p, x, cfg, pl).token_dropped()[:, -1]
+                 for p, x, pl in mesh_moe]
+    flat_lost = [layers.moe_route(p, x.reshape(-1, cfg.d_model), cfg)
+                 .dropped().any(-1).reshape(x.shape[:2])[:, -1]
+                 for p, x, _ in flat_moe]
+    require(len(mesh_lost) == len(flat_lost) == gen_len + 1,
+            "one MoE call a row expected at depth 1")
+    lost_m = torch.cat(mesh_lost).cpu()
+    lost_f = torch.cat(flat_lost).cpu()
+    keep = (~lost_m & ~lost_f).nonzero().reshape(-1).tolist()
+    per_row = row_rel_l2(rows_mesh, rows_flat)
+    mesh_vs_flat = logit_stats(torch, rows_mesh[:, keep],
+                               rows_flat[:, keep]) if keep else {}
+    step = next((i for i in range(1, gen_len + 1) if bool(lost_m[i])), 1)
+    p, x, pl = mesh_moe[step]
+    found["mesh_decode_moe"] = mesh_moe_check(
+        torch, layers, cfg, p, x, pl, found["p_h"], f"decode_step_{step}")
+    del mesh_moe, flat_moe
+    found.pop("p_h")
+
+    q, k, v, kw = attn_in["last"]
+    pos = kw["cache_pos"]
+    got = layers.decode_attention_sharded(q, k, v, **kw)
+    kern = ops.fused_attention(q, k, v, causal=False, window=kw["window"],
+                               logit_cap=kw["logit_cap"], q_offset=pos,
+                               kv_len=pos + 1).reshape(got.shape)
+    plain = ref.flash_attention_ref(q, k, v, causal=False,
+                                    window=kw["window"],
+                                    logit_cap=kw["logit_cap"], q_offset=pos,
+                                    kv_len=pos + 1).reshape(got.shape)
+    tol = ATTN_TOL[str(q.dtype).split(".")[-1]]
+    vs_kernel = attn_err(got, kern, tol)
+    with patched(compat, "pmax", without_pmax):
+        planted = attn_err(layers.decode_attention_sharded(q, k, v, **kw),
+                           kern, tol)
+    emit({"phase": "serve_mesh_checks", "tol_rel_l2": KIMI_REL_L2,
+          "rows_compared": keep, "rows_left_out": gen_len + 1 - len(keep),
+          "rows_with_a_mesh_drop": int(lost_m.sum()),
+          "rows_with_an_unsharded_drop": int(lost_f.sum()),
+          "mesh_vs_unsharded": mesh_vs_flat,
+          "row_rel_l2": per_row,
+          "replay_equals_served": served_equal,
+          "decode_attention": {
+              "q": list(q.shape), "cache": list(k.shape), "pos": pos,
+              "ranks": mesh.shape[plan.tp], "tol": tol,
+              "vs_split_decode": vs_kernel,
+              "vs_plain": attn_err(got, plain, tol),
+              "planted_without_pmax": planted}})
+    require(len(keep) >= gen_len + 1 - MESH_DECODE_DROP_ROWS,
+            f"serve_mesh: only rows {keep} were dispatched alike")
+    require(mesh_vs_flat["rel_l2"] <= KIMI_REL_L2,
+            f"serve_mesh: mesh'd vs unsharded logits {mesh_vs_flat}")
+    require(vs_kernel["within"],
+            f"decode_attention_sharded vs split_decode: {vs_kernel}")
+    require(not planted["within"],
+            f"a merge without pmax passes: {planted}")
+    del q, k, v, attn_in, rows_mesh, rows_flat
+
+    # (e) the long prefill's dispatch buckets through the two-layer
+    # all-to-all, (pod 2, ici 8) over the 16 model ranks
+    p, x = found.pop("mesh_prefill")
+    lay = MS.layout(x.shape, cfg, plan)
+    route = MS.sharded_route(p, x, cfg, plan)
+    xt = compat.to_ranks(x, lay.ranks, lay.x_spec).reshape(
+        *route.eids.shape[:-2], -1, cfg.d_model)
+    disp, _ = MS._local_dispatch(xt, route.eids, cfg.moe.num_experts,
+                                 lay.cap)
+    n = lay.ranks.sizes[-1]
+    grid = compat.EmulatedMesh((2, n // 2), ("pod", "ici"))
+    R2 = compat.Ranks.of(grid, grid.axis_names)
+    buckets = disp.reshape(2, n // 2, n, -1)
+    del disp
+    flat_ranks = compat.Ranks.of(mesh, (plan.tp,))
+    two, two_ms = synced(torch, lambda: H.two_layer_all_to_all(
+        buckets, R2, "ici", "pod"))
+    equal_two = bool(torch.equal(two.reshape(n, n, -1),
+                                 buckets.reshape(n, n, -1).transpose(0, 1)))
+    del two
+    one, one_ms = synced(torch, lambda: compat.all_to_all(
+        buckets.reshape(n, n, -1), flat_ranks, plan.tp, 0, 0, tiled=True))
+    equal_one = bool(torch.equal(one,
+                                 buckets.reshape(n, n, -1).transpose(0, 1)))
+    bucket_bytes = buckets.numel() * buckets.element_size()
+    del one, buckets
+    emit({"phase": "serve_mesh_all_to_all",
+          "buckets": [n, cfg.moe.num_experts, lay.cap, cfg.d_model],
+          "bytes": bucket_bytes, "grid": grid.shape,
+          "two_layer_equals_flat_transpose": equal_two,
+          "two_layer_ms": two_ms,
+          "flat_all_to_all_equals_transpose": equal_one,
+          "flat_all_to_all_ms": one_ms})
+    require(equal_two and equal_one, "two_layer_all_to_all is not the "
+            "flat transpose of the dispatch buckets")
+    torch.cuda.empty_cache()
+
+    profs = serve_profiles(torch, layers, cfg, params, traffic, "serve_mesh",
+                           route_counts(tc_prefill=cfg.n_layers),
+                           route_counts(), plan=plan, decode_plan=dplan)
+    emit({"phase": "serve_mesh_vs_unsharded", **{
+        f"{name}_{what}": {"mesh": profs[what][key],
+                           "unsharded": base["profiles"][what][key]}
+        for what in ("generate", "prefill", "decode")
+        for name, key in (("wall_s", "wall_s"), ("idle_share", "idle_share"),
+                          ("device_busy_s", "device_busy_s"))}})
+    del traffic
+    torch.cuda.empty_cache()
+    return traffic_counts(rec_a, rec_b)
+
+
+def seeded_grads(torch, shape, grid, seed, dev):
+    """8 ranks' seeded f32 gradients of one leaf: ``[*grid, *shape]``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn((*grid, *shape), generator=gen, device=dev)
+
+
+def two_layer_psum_without_slow(x, ranks, fast, slow):
+    """A planted fault: ``two_layer_psum`` with the slow-axis psum left
+    out (each pod keeps its own partial sum)."""
+    from repro_torch import compat
+    from repro_torch.core import hierarchical as H
+    shape = x.shape[ranks.n:]
+    flat, n = H._flat_padded(x, ranks, compat.axis_size(ranks, fast))
+    shard = compat.psum_scatter(flat, ranks, fast, 0)
+    return H._unflat(compat.all_gather(shard, ranks, fast, 0), ranks, n,
+                     shape)
+
+
+def phase_collectives(torch, dev):
+    """The two-layer gradient sync (``core.hierarchical``) on the
+    emulated (pod 2, ici 4) grid: every parameter leaf of
+    ``phase_train``'s gemma2-9b (full width, depth 2, f32) as 8 ranks'
+    seeded gradients, one leaf at a time (the 256000 x 3584 embedding's
+    8 ranks alone take 29.4 GB). Each leaf: ``two_layer_psum`` against a
+    plain sum over the rank axes (max |diff| <= ``COLLECTIVE_REL`` x max
+    |sum|); ``compressed_psum`` over two steps with the residual fed
+    back (relative error < ``EF_BOUND``, residual nonzero:
+    ``spmd_checks``' bounds); the tree forms' results equal it leaf by
+    leaf on the small leaves. A planted fault, the psum without its
+    slow-axis hop, must fail the first check. Prints each form's wall
+    time and its slow-hop bytes a rank (1/q of the flat sum's; int8
+    a quarter of that, plus a scale), the peak, and a profile of both
+    forms on the largest leaf (its idle share)."""
+    import dataclasses
+    from repro_torch import compat, configs
+    from repro_torch._tree import leaves_with_paths
+    from repro_torch.core import hierarchical as H
+    from repro_torch.models import transformer as T
+    free_device(torch, dev)
+    cfg = dataclasses.replace(configs.get("gemma2_9b"),
+                              n_layers=TRAIN_LAYERS)
+    like = T.init_params(0, cfg, dtype=torch.bfloat16, device=dev)
+    shapes = [(path, tuple(t.shape)) for path, t in leaves_with_paths(like)]
+    del like
+    torch.cuda.empty_cache()
+    grid = COLLECTIVE_GRID
+    ranks = compat.Ranks.of(compat.EmulatedMesh(grid, ("pod", "ici")),
+                            ("pod", "ici"))
+    q = grid[1]
+    worst = {"psum": 0.0, "ef_step1": 0.0, "ef_step2": 0.0}
+    walls = {"psum": 0.0, "plain_sum": 0.0, "ef": 0.0}
+    planted = []
+    elems = 0
+    for i, (path, shape) in enumerate(shapes):
+        x = seeded_grads(torch, shape, grid, 2 * i, dev)
+        want, plain_ms = synced(torch, lambda: x.sum((0, 1)))
+        got, ms = synced(torch, lambda: H.two_layer_psum(x, ranks, "ici",
+                                                         "pod"))
+        scale = float(want.abs().max())
+        worst["psum"] = max(worst["psum"], float(
+            (got.reshape(shape) - want).abs().max()) / scale)
+        walls["psum"] += ms
+        walls["plain_sum"] += plain_ms
+        del got
+        if len(planted) < 2:
+            bad = two_layer_psum_without_slow(x, ranks, "ici", "pod")
+            planted.append(float((bad - want).abs().max()) / scale)
+            del bad
+        del want
+        res = torch.zeros((), device=dev).expand(x.shape)
+        for step in (1, 2):
+            if step == 2:          # one leaf's 8 ranks at a time
+                del x
+                x = seeded_grads(torch, shape, grid, 2 * i + 1, dev)
+            (out, res), ms = synced(torch, lambda: H.compressed_psum(
+                x, res, ranks, "ici", "pod"))
+            walls["ef"] += ms
+            want = x.sum((0, 1))
+            rel = float((out[0, 0] - want).abs().max()
+                        / want.abs().max())
+            worst[f"ef_step{step}"] = max(worst[f"ef_step{step}"], rel)
+            require(math.prod(shape) <= q or float(res.abs().sum()) > 0,
+                    f"{path}: the residual is zero")
+            del out, want
+        elems += math.prod(shape)
+        del x, res
+        torch.cuda.empty_cache()
+    small = {p: seeded_grads(torch, s, grid, 7, dev) for p, s in shapes
+             if math.prod(s) < (1 << 20)}
+    tree = H.tree_two_layer_psum(list(small.values()), ranks, "ici", "pod")
+    tree_equal = all(torch.equal(t, H.two_layer_psum(x, ranks, "ici", "pod"))
+                     for t, x in zip(tree, small.values()))
+    del small, tree
+    # the idle share: a profile of both forms on the largest leaf
+    big = max(range(len(shapes)), key=lambda j: math.prod(shapes[j][1]))
+    x = seeded_grads(torch, shapes[big][1], grid, 2 * big, dev)
+
+    def both():
+        H.two_layer_psum(x, ranks, "ici", "pod")
+        H.compressed_psum(x, torch.zeros((), device=dev).expand(x.shape),
+                          ranks, "ici", "pod")
+    prof = profile_write(torch, both, ())
+    del x
+    torch.cuda.empty_cache()
+    flat_bytes = 4 * elems
+    rec = {"config": cfg.name, "layers": cfg.n_layers, "leaves": len(shapes),
+           "elements_a_rank": elems, "grid": dict(zip(ranks.names,
+                                                     ranks.sizes)),
+           "largest_leaf_bytes_8_ranks": 4 * 8 * max(
+               math.prod(s) for _, s in shapes),
+           "psum_max_rel": worst["psum"], "psum_bound": COLLECTIVE_REL,
+           "ef_max_rel": [worst["ef_step1"], worst["ef_step2"]],
+           "ef_bound": EF_BOUND,
+           "planted_no_slow_hop_rel": planted,
+           "tree_forms_equal_leaf_loop": tree_equal,
+           "wall_ms": walls,
+           "profile_largest_leaf": {"leaf": shapes[big][0], **{
+               k: prof[k] for k in ("wall_s", "device_busy_s", "idle_share",
+                                    "device_ops", "top_ops")}},
+           "slow_hop_bytes_a_rank": {"flat_psum": flat_bytes,
+                                     "two_layer": flat_bytes // q,
+                                     "compressed": elems // q + 4 * len(
+                                         shapes)},
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    emit({"phase": "collectives", **rec})
+    require(worst["psum"] <= COLLECTIVE_REL, f"two_layer_psum: {rec}")
+    require(max(worst["ef_step1"], worst["ef_step2"]) < EF_BOUND,
+            f"compressed_psum: {rec}")
+    require(min(planted) > COLLECTIVE_REL,
+            f"a psum without the slow hop passes: {rec}")
+    require(tree_equal, "tree_two_layer_psum differs from the leaf loop")
+    torch.cuda.empty_cache()
+
+
+def phase_pipeline(torch, dev):
+    """``models.pipeline.pipeline_apply`` on an emulated ``pipe`` axis of
+    4 stages, each one super-block of gemma2-9b at full width (a local
+    and a global layer, bf16, seeded: 8 layers), over 8 microbatches of
+    ``[1, 4096]`` token embeddings. Its output must equal sequential
+    application of the 4 blocks bit for bit (the same calls on the same
+    rows; each stage's attention on ``tc_prefill``). Prints both walls
+    (S + M - 1 = 11 rounds of 4 stage calls, 44 calls against 32), the
+    peak, a profile of the pipeline (its idle share) and its flash
+    launches, which its counted run takes."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.compat import EmulatedMesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.pipeline import pipeline_apply
+    free_device(torch, dev)
+    n_stages, n_mb, seq = MESH_PIPE
+    cfg = dataclasses.replace(configs.get("gemma2_9b"),
+                              n_layers=n_stages * 2)
+    params = T.init_params(0, cfg, dtype=torch.bfloat16, device=dev)
+    stage_params = params["blocks"]["slots"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (n_mb, seq), generator=gen,
+                           device=dev)
+    x = T._embed_inputs(params, cfg, {"tokens": tokens})
+    positions = T._positions(1, seq, dev)
+    calls = []
+
+    def stage_fn(p, xb):
+        calls.append(1)
+        blocks = {"slots": [{k: _lead(v) for k, v in slot.items()}
+                            for slot in p]}
+        return T._run_blocks(blocks, xb, cfg, positions)[0]
+
+    def sequential():
+        outs = []
+        for m in range(n_mb):
+            y = x[m:m + 1]
+            for s in range(n_stages):
+                y = stage_fn([_index(slot, s) for slot in stage_params], y)
+            outs.append(y)
+        return torch.cat(outs)
+    run = pipeline_apply(stage_fn, EmulatedMesh((n_stages,), ("pipe",)),
+                         microbatches=n_mb)
+    run(stage_params, x)                                     # warm-up
+    sequential()
+    calls.clear()
+    out, ms, launches, routes, peak = counted(
+        torch, dev, lambda: run(stage_params, x))
+    pipe_calls = len(calls)
+    calls.clear()
+    prof = profile_write(torch, run, (stage_params, x))
+    calls.clear()
+    want, seq_ms = synced(torch, sequential)
+    rel = float((out.float() - want.float()).norm() / want.float().norm())
+    rec = {"stages": n_stages, "microbatches": n_mb, "tokens": seq,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "stage_param_bytes": sum(t.numel() * t.element_size()
+                                    for t in _leaves(stage_params)),
+           "pipeline_ms": ms, "sequential_ms": seq_ms,
+           "ratio": ms / seq_ms, "stage_calls": pipe_calls,
+           "sequential_calls": len(calls), "bit_equal": bool(
+               torch.equal(out, want)), "rel_l2": rel,
+           "peak_mem_bytes": peak, "launches": launches,
+           "flash_launches_by_route": routes,
+           "profile": {k: prof[k] for k in ("wall_s", "device_busy_s",
+                                            "idle_share", "device_ops",
+                                            "top_ops")}}
+    emit({"phase": "pipeline", **rec})
+    require(pipe_calls == n_stages * (n_stages + n_mb - 1),
+            f"pipeline: {pipe_calls} stage calls")
+    require(rec["bit_equal"], f"pipeline vs sequential: {rec}")
+    require(routes == route_counts(tc_prefill=2 * pipe_calls),
+            f"pipeline: flash routes {routes}")
+    del params, stage_params, x, out, want
+    torch.cuda.empty_cache()
+    return launches, routes
+
+
+def _lead(tree):
+    """A stage's parameter slice with the stacked blocks' axis put back
+    (one block)."""
+    if isinstance(tree, dict):
+        return {k: _lead(v) for k, v in tree.items()}
+    return tree[None]
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 def phase_serve_ssm(torch, dev):
@@ -3483,6 +4064,8 @@ def main() -> int:
     phase_mp(torch, dev)
     served, served_routes = phase_serve(torch, dev)
     moe, moe_routes = phase_serve_moe(torch, dev)
+    phase_collectives(torch, dev)
+    piped, piped_routes = phase_pipeline(torch, dev)
     ssm, ssm_routes = phase_serve_ssm(torch, dev)
     vlm, vlm_routes = phase_serve_vlm(torch, dev)
     audio, audio_routes = phase_serve_audio(torch, dev)
@@ -3496,12 +4079,12 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    runs = (served, moe, ssm, vlm, audio, trained, restored)
+    runs = (served, moe, piped, ssm, vlm, audio, trained, restored)
     launches = {k: launches[k] + patterns[k] + hosted[k]
                 + sum(r[k] for r in runs) for k in launches}
     routes = {r: sum(rr[r] for rr in (
-        served_routes, moe_routes, ssm_routes, vlm_routes, audio_routes,
-        trained_routes, restored_routes)) for r in served_routes}
+        served_routes, moe_routes, piped_routes, ssm_routes, vlm_routes,
+        audio_routes, trained_routes, restored_routes)) for r in served_routes}
     require(sum(routes.values()) == launches["flash_attention_fused"],
             f"flash routes {routes} vs {launches['flash_attention_fused']}")
     # pack's line: its largest shape, a window of a training save's
@@ -3528,7 +4111,8 @@ def main() -> int:
                  "host_case": {k: pack_rec[k] for k in case_keys},
                  "window_case": {k: window_case[k] for k in case_keys}}}
     for what, n in (("serve", served), ("serve_moe", moe),
-                    ("serve_vlm", vlm), ("serve_audio", audio)):
+                    ("pipeline", piped), ("serve_vlm", vlm),
+                    ("serve_audio", audio)):
         require(n["flash_attention_fused"] > 0,
                 f"{what}: flash_attention_fused never launched")
     bwd_rec = measured["flash_attention_bwd"]

@@ -29,3 +29,6 @@ from repro_torch.core.twophase import (  # noqa: F401
 )
 from repro_torch.core.tam import make_tam_read, make_tam_write  # noqa: F401
 from repro_torch.core.rounds import peak_aggregator_buffer_elems  # noqa: F401
+from repro_torch.core.hierarchical import (  # noqa: F401
+    compressed_psum, two_layer_all_to_all, two_layer_psum,
+)

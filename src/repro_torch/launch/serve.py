@@ -82,17 +82,26 @@ def request_batch(cfg, prompts: torch.Tensor) -> dict:
     return batch
 
 
-def generate(params, cfg, prompts: torch.Tensor, gen_len: int):
+def generate(params, cfg, prompts: torch.Tensor, gen_len: int, plan=None,
+             decode_plan=None):
     """Greedy generation: prefill (:func:`request_batch`) then
-    ``gen_len`` decode steps. Returns the tokens ``[B, gen_len + 1]``."""
-    logits, state = T.prefill(params, cfg, request_batch(cfg, prompts))
+    ``gen_len`` decode steps. Returns the tokens ``[B, gen_len + 1]``.
+    ``plan`` is the sharding plan of both, as in the reference;
+    ``decode_plan``, where given, replaces it for the decode steps (a
+    cell's decode plan turns sequence sharding off:
+    ``launch.steps.plan_for_cell``)."""
+    if decode_plan is None:
+        decode_plan = plan
+    logits, state = T.prefill(params, cfg, request_batch(cfg, prompts),
+                              plan=plan)
     # pad the caches so decode can extend beyond the prompt
     state = _grow_caches(state, gen_len)
     toks = []
     tok = pick(logits, cfg.vocab)
     for _ in range(gen_len):
         toks.append(tok)
-        logits, state = T.decode_step(params, cfg, state, tok)
+        logits, state = T.decode_step(params, cfg, state, tok,
+                                      plan=decode_plan)
         tok = pick(logits, cfg.vocab)
     toks.append(tok)
     return torch.stack(toks, dim=1)

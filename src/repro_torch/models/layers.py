@@ -3,22 +3,26 @@ MLP, top-k MoE and the Mamba2 SSD block (the port of the reference's
 ``models/layers.py``).
 
 Pure functions over explicit parameter dicts, as in the reference. The
-reference threads a ``ShardingPlan`` through every layer; on one device
-its ``constrain`` is the identity and its mesh paths (the sharded decode
-``decode_attention_sharded``, the MoE's ``moe_sharded``) do not apply,
-so the port has none of them (``moe`` asked for a mesh raises).
+reference threads a ``ShardingPlan`` through every layer; the port's
+(``models/sharding.py``) constrains nothing (one device holds every
+rank), and a plan with a mesh sends two layers through their mesh
+paths, emulated on a leading rank axis (``compat``): the decode
+attention over a sequence-sharded KV cache
+(:func:`decode_attention_sharded`, flash-decoding over the model axis)
+and the MoE's explicitly partitioned dispatch (``moe_sharded.py``).
 Attention on a CUDA tensor runs the Hopper kernel through
 ``kernels.ops.fused_attention`` (and, where an input requires grad, its
 backward kernel in the backward pass); on a CPU tensor it runs the plain
 version, ``kernels.ref.flash_attention_ref``, which autograd
 differentiates. The dense matrix products are ``torch.einsum`` calls,
 as the reference leaves them to XLA; so are the MoE's dispatch (a
-stable sort, prefix sums, index writes and gathers) and the SSD scan,
-which the reference writes in ``jnp`` with no Pallas kernel. The
-attention's projections and the MLP promote mixed operand types as
-``jnp.einsum`` does (:func:`_mm`): the enc-dec reference feeds f32
-frames to bf16 weights, so its encoder runs in f32, and its decoder's
-cross-attention takes bf16 queries against f32 keys and values.
+stable sort, prefix sums, index writes and gathers), the SSD scan and
+the sharded decode attention, which the reference writes in ``jnp``
+with no Pallas kernel. The attention's projections and the MLP promote
+mixed operand types as ``jnp.einsum`` does (:func:`_mm`): the enc-dec
+reference feeds f32 frames to bf16 weights, so its encoder runs in f32,
+and its decoder's cross-attention takes bf16 queries against f32 keys
+and values.
 """
 from __future__ import annotations
 
@@ -28,8 +32,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import compat as C
+from repro_torch.compat import P
 from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe_sharded import moe_sharded
 
 # ---------------------------------------------------------------------------
 # norms / rope
@@ -139,10 +146,64 @@ def flash_attention(q, k, v, *, causal: bool, window: int | None,
                                    kv_len=kv_len)
 
 
+def decode_attention_sharded(q, k_cache, v_cache, *, cache_pos: int,
+                             window: int | None, logit_cap: float | None,
+                             plan) -> torch.Tensor:
+    """Decode attention with the KV cache sequence-sharded over the
+    model axis — flash-decoding: each model rank computes a partial
+    softmax over its ``S / n_model`` cache rows (logits masked to
+    ``kvpos <= pos`` and the window, filled with -1e30), and the
+    partials merge through ``pmax`` of the row max, ``psum`` of l and
+    ``psum`` of the product of the bf16-rounded probabilities with v.
+
+    q: [B, 1, Hq, hd]; caches: [B, S, Hkv, hd]. Returns [B, 1, Hq*hd] in
+    q's type. The logits and the products sum in f32 (the reference's
+    ``preferred_element_type``): the operands are converted exactly
+    first. The probabilities are rounded to bf16 whatever the cache's
+    type and promoted against it. Raises ``ValueError`` where the cache
+    length or the batch does not divide over the ranks."""
+    mesh, tp, dp = plan.mesh, plan.tp, plan.dp
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def fn(R, qb, kc, vc):
+        b, _, hq, hd = qb.shape[R.n:]
+        s_loc, hkv = kc.shape[R.n + 1], kc.shape[R.n + 2]
+        g = hq // hkv
+        lead = qb.shape[:R.n]
+        kvpos = (C.axis_index(R, tp, kc.device, local_ndim=1) * s_loc
+                 + torch.arange(s_loc, device=kc.device))
+        qr = qb.reshape(*lead, b, hkv, g, hd)
+        t = torch.promote_types(qb.dtype, kc.dtype)
+        logits = torch.einsum("...bkgd,...bskd->...bkgs", qr.to(t).float(),
+                              kc.to(t).float()) * scale
+        logits = softcap(logits, logit_cap)
+        mask = kvpos <= cache_pos
+        if window is not None:
+            mask = mask & (cache_pos - kvpos < window)
+        logits = torch.where(mask[..., None, None, None, :], logits, -1e30)
+        mg = C.pmax(logits.amax(dim=-1), R, tp)
+        probs = torch.exp(logits - mg[..., None])
+        l_ = C.psum(probs.sum(dim=-1), R, tp)
+        pt = torch.promote_types(torch.bfloat16, vc.dtype)
+        pv = torch.einsum("...bkgs,...bskd->...bkgd",
+                          probs.to(torch.bfloat16).to(pt).float(),
+                          vc.to(pt).float())
+        acc = C.psum(pv, R, tp)
+        out = acc / torch.clamp(l_[..., None], min=1e-30)
+        return out.reshape(*out.shape[:R.n], b, 1, hq * hd).to(qb.dtype)
+
+    return C.shard_map(
+        fn, mesh, in_specs=(P(dp, None, None, None), P(dp, tp, None, None),
+                            P(dp, tp, None, None)),
+        out_specs=P(dp, None, None),
+        axes=tuple(plan.data_axes) + (tp,))(q, k_cache, v_cache)
+
+
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, *,
               local: bool, cache: tuple | None = None,
               cache_pos: int | None = None,
-              xattn_kv: torch.Tensor | None = None, causal: bool = True):
+              xattn_kv: torch.Tensor | None = None, causal: bool = True,
+              plan=None):
     """Full attention sub-layer.
 
     Modes:
@@ -154,7 +215,8 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, *,
         the write position (an int). x is [B, 1, d]. The new keys and
         values are written into the caches IN PLACE (the reference's
         ``dynamic_update_slice`` returns new arrays); the caches returned
-        are the ones passed in.
+        are the ones passed in. With a mesh'd ``plan`` a one-token decode
+        reads the cache through :func:`decode_attention_sharded`.
       cross-attention (enc-dec): ``xattn_kv`` = the encoder output
         [B, S_enc, d]; q from x, k and v from it, no rope, no mask, no
         cache. q, k and v go to the attention in their promoted type (the
@@ -186,6 +248,11 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, *,
                              f"at {cache_pos} (grow it before decoding)")
         k_cache[:, cache_pos:cache_pos + s] = k
         v_cache[:, cache_pos:cache_pos + s] = v
+        if plan is not None and plan.mesh is not None and s == 1:
+            out = decode_attention_sharded(
+                q, k_cache, v_cache, cache_pos=cache_pos, window=window,
+                logit_cap=cfg.attn_logit_softcap, plan=plan)
+            return _mm("bse,ed->bsd", out, p["wo"]), (k_cache, v_cache)
         out = flash_attention(q, k_cache, v_cache, causal=False,
                               window=window,
                               logit_cap=cfg.attn_logit_softcap,
@@ -303,14 +370,12 @@ def moe_route(p: dict, xt: torch.Tensor, cfg: ModelConfig) -> MoERoute:
     return MoERoute(gates, eids, aux, order, ok, slot, cap)
 
 
-def moe(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh=None):
-    """Top-k MoE -> ``(out, aux)``. The reference's mesh path (the
-    explicitly partitioned dispatch of ``moe_sharded.py``) is not
-    ported: one device runs the dense dispatch, and a mesh raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe: the sharded dispatch (the reference's moe_sharded.py) "
-            "is not ported; the port runs one device, without a mesh")
+def moe(p: dict, x: torch.Tensor, cfg: ModelConfig, plan=None):
+    """Top-k MoE -> ``(out, aux)``. With a mesh'd ``plan``: the
+    explicitly partitioned GShard dispatch of ``moe_sharded.py`` on the
+    emulated ranks; without one: the dense sort-based dispatch."""
+    if plan is not None and plan.mesh is not None:
+        return moe_sharded(p, x, cfg, plan)
     return _moe_dense(p, x, cfg)
 
 

@@ -16,6 +16,12 @@ training objective (cross-entropy plus 0.01 x the MoE layers' summed
 aux loss); its gradient comes from autograd, the attention's from the
 backward kernel on the card (``kernels.flash.FlashAttention``).
 
+Every entry point takes the reference's ``ShardingPlan`` as ``plan=``
+(default none: one device, no mesh). Its constraints are the identity
+here; a plan with an emulated mesh (``launch.mesh``) sends the MoE
+layers through ``moe_sharded`` and a one-token decode's self-attention
+through ``layers.decode_attention_sharded``, on a leading rank axis.
+
 The vlm family prepends precomputed image embeddings
 (``batch["prefix_embeds"]``, the reference's stub of the vision tower)
 to the token embeddings, which shifts every position after them; its
@@ -153,7 +159,7 @@ def _layer_params(slot, xattn, bi: int):
 
 
 def _apply_layer(pl_, x, cfg, i_in_period, positions, cache=None,
-                 cache_pos=None, enc_out=None, causal=True):
+                 cache_pos=None, enc_out=None, causal=True, plan=None):
     """One layer (attention-or-mamba, then with ``enc_out`` the
     cross-attention on it, then mlp-or-moe). ``cache`` is the layer's
     ``(kv, ssm)`` pair in decode, else None; ``causal`` the
@@ -165,7 +171,7 @@ def _apply_layer(pl_, x, cfg, i_in_period, positions, cache=None,
         a, kv = L.attention(pl_["attn"], h, cfg, positions,
                             local=cfg.is_local_layer(i_in_period),
                             cache=None if cache is None else cache[0],
-                            cache_pos=cache_pos, causal=causal)
+                            cache_pos=cache_pos, causal=causal, plan=plan)
         new_cache = (kv, None)
     else:
         a, ssm = L.mamba_block(pl_["mamba"], h, cfg,
@@ -180,7 +186,7 @@ def _apply_layer(pl_, x, cfg, i_in_period, positions, cache=None,
     aux = None
     if "moe" in pl_:
         mo, aux = L.moe(pl_["moe"], L.rms_norm(x, pl_["ln2"], cfg.norm_eps),
-                        cfg)
+                        cfg, plan=plan)
         x = x + mo
     elif "mlp" in pl_:
         x = x + L.mlp(pl_["mlp"], L.rms_norm(x, pl_["ln2"], cfg.norm_eps))
@@ -192,13 +198,14 @@ def _add_aux(total, aux):
 
 
 def _super_block(slots, bi: int, x, cfg, positions, xattn=None,
-                 enc_out=None, causal=True):
+                 enc_out=None, causal=True, plan=None):
     """The layers of super-block ``bi`` (no caches) -> (x, aux or
     None)."""
     aux = None
     for j in range(len(slots)):
         x, _, a = _apply_layer(_layer_params(slots[j], xattn, bi), x, cfg,
-                               j, positions, enc_out=enc_out, causal=causal)
+                               j, positions, enc_out=enc_out, causal=causal,
+                               plan=plan)
         aux = _add_aux(aux, a)
     return x, aux
 
@@ -209,7 +216,8 @@ def _stacked_like(n_blocks: int, t: torch.Tensor) -> torch.Tensor:
 
 def _run_blocks(blocks, x, cfg, positions, xattn=None, enc_out=None,
                 decode_state: DecodeState | None = None, causal=True,
-                collect_caches: bool = False, remat: bool = False):
+                collect_caches: bool = False, remat: bool = False,
+                plan=None):
     """Loop over super-blocks. Returns (x, new_decode_state, aux): aux
     is the MoE layers' summed aux loss, or None for a model without MoE
     layers. With ``xattn`` (the decoder's cross-attention parameters,
@@ -235,7 +243,7 @@ def _run_blocks(blocks, x, cfg, positions, xattn=None, enc_out=None,
         for bi in range(n_blocks):
             x, a = torch.utils.checkpoint.checkpoint(
                 _super_block, slots, bi, x, cfg, positions, xattn, enc_out,
-                causal, use_reentrant=False)
+                causal, plan, use_reentrant=False)
             aux = _add_aux(aux, a)
         return x, None, aux
     kv, ssm = [None] * period, [None] * period
@@ -252,7 +260,7 @@ def _run_blocks(blocks, x, cfg, positions, xattn=None, enc_out=None,
                 _layer_params(slots[j], xattn, bi), x, cfg, j, positions,
                 cache=layer_cache,
                 cache_pos=None if decode_state is None else decode_state.pos,
-                enc_out=enc_out, causal=causal)
+                enc_out=enc_out, causal=causal, plan=plan)
             aux = _add_aux(aux, a)
             if decode_state is None and not collect_caches:
                 continue
@@ -290,13 +298,14 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
         b, 1)
 
 
-def _encode(params, cfg: ModelConfig, frames: torch.Tensor):
+def _encode(params, cfg: ModelConfig, frames: torch.Tensor, plan=None):
     """The enc-dec encoder: its blocks over ``frames`` [B, S_enc, d],
     non-causal, then ``enc_norm``. Runs in the type ``frames`` and the
     weights promote to (f32 frames: f32, as in the reference)."""
     b, s, _ = frames.shape
     x, _, _ = _run_blocks(params["enc_blocks"], frames, cfg,
-                          _positions(b, s, frames.device), causal=False)
+                          _positions(b, s, frames.device), causal=False,
+                          plan=plan)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -307,29 +316,32 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                      cfg.final_logit_softcap)
 
 
-def forward(params, cfg: ModelConfig, batch: dict, remat: bool = False):
+def forward(params, cfg: ModelConfig, batch: dict, remat: bool = False, *,
+            plan=None):
     """Full-sequence forward -> (logits [B, S, V], aux loss): the MoE
     layers' aux losses summed, or an f32 zero for a model without
     them. An enc-dec config runs its encoder over ``batch["frames"]``
     first (never rematerialised, as in the reference)."""
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
-    enc_out = _encode(params, cfg, batch["frames"]) if cfg.enc_dec else None
+    enc_out = (_encode(params, cfg, batch["frames"], plan) if cfg.enc_dec
+               else None)
     x, _, aux = _run_blocks(params["blocks"], x, cfg,
                             _positions(b, s, x.device),
                             xattn=params.get("xattn"), enc_out=enc_out,
-                            remat=remat)
+                            remat=remat, plan=plan)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, cfg, x), aux
 
 
-def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = False):
+def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = False, *,
+            plan=None):
     """Causal LM cross-entropy (mean over tokens) + 0.01 x the aux loss,
     as the reference: a vlm's prefix rows left out, the padded vocab
     columns masked out of the partition function, logsumexp and the
     label's logit in f32."""
-    logits, aux = forward(params, cfg, batch, remat=remat)
+    logits, aux = forward(params, cfg, batch, remat=remat, plan=plan)
     labels = batch["labels"]
     if cfg.frontend == "vision" and "prefix_embeds" in batch:
         logits = logits[:, batch["prefix_embeds"].shape[1]:]
@@ -350,11 +362,13 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = False):
 
 def init_decode_state(cfg: ModelConfig, batch_size: int, max_seq: int,
                       dtype=torch.bfloat16, device=None,
-                      enc_out=None) -> DecodeState:
+                      enc_out=None, *, plan=None) -> DecodeState:
     """Zero caches for ``batch_size`` sequences of up to ``max_seq``
     positions: KV in ``dtype`` for attention slots; for Mamba slots the
     SSM state in f32 and the conv state in ``dtype``, both independent
-    of ``max_seq``; ``enc_out`` as given."""
+    of ``max_seq``; ``enc_out`` as given. ``plan`` places nothing on
+    one device (the reference constrains the KV caches to
+    ``plan.kv_cache()``)."""
     dev = resolve_device(device)
     n_blocks = cfg.n_layers // cfg.block_period
     kv, ssm = [], []
@@ -378,7 +392,7 @@ def init_decode_state(cfg: ModelConfig, batch_size: int, max_seq: int,
 
 
 def decode_step(params, cfg: ModelConfig, state: DecodeState,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, *, plan=None):
     """One decode step. tokens: [B] int. Returns (logits [B, V], state).
 
     The caches of ``state`` are written in place (KV at position
@@ -391,11 +405,11 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState,
     enc_out = state.enc_out if cfg.enc_dec else None
     x, new_state, _ = _run_blocks(params["blocks"], x, cfg, positions,
                                   xattn=params.get("xattn"), enc_out=enc_out,
-                                  decode_state=state)
+                                  decode_state=state, plan=plan)
     return _logits(params, cfg, x)[:, 0], new_state
 
 
-def prefill(params, cfg: ModelConfig, batch: dict):
+def prefill(params, cfg: ModelConfig, batch: dict, *, plan=None):
     """Full-sequence forward that also builds the decode caches.
 
     Returns (last-token logits [B, V], DecodeState with kv caches of
@@ -405,10 +419,11 @@ def prefill(params, cfg: ModelConfig, batch: dict):
     """
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
-    enc_out = _encode(params, cfg, batch["frames"]) if cfg.enc_dec else None
+    enc_out = (_encode(params, cfg, batch["frames"], plan) if cfg.enc_dec
+               else None)
     x, state, _ = _run_blocks(params["blocks"], x, cfg,
                               _positions(b, s, x.device),
                               xattn=params.get("xattn"), enc_out=enc_out,
-                              collect_caches=True)
+                              collect_caches=True, plan=plan)
     return (_logits(params, cfg, x[:, -1:])[:, 0],
             state._replace(enc_out=enc_out))

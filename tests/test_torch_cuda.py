@@ -1360,3 +1360,107 @@ def test_cuda_train_loop_saves_and_restores_byte_for_byte(cuda, tmp_path,
         assert a.device == b.device and a.dtype == b.dtype
         assert torch.equal(a.reshape(-1).view(torch.uint8),
                            b.reshape(-1).view(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths on the emulated rank grid (plain PyTorch on the card,
+# as the reference's jnp / lax): card against CPU
+# ---------------------------------------------------------------------------
+
+MESH_ATTN = [(pos, window, cap, dtype) for pos in (5, 16, 60)
+             for window, cap in ((None, None), (8, 20.0))
+             for dtype in (torch.float32, torch.bfloat16)]
+
+
+def _mesh_plan(form, data_axes=("data",)):
+    from repro_torch.compat import EmulatedMesh
+    from repro_torch.models.sharding import ShardingPlan
+    return ShardingPlan(mesh=EmulatedMesh((2, 4), ("data", "model")),
+                        data_axes=data_axes, model_axis="model",
+                        shard_seq=form == "seq")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos,window,cap,dtype", MESH_ATTN,
+                         ids=[f"pos{p}-w{w}-{str(d)[6:]}"
+                              for p, w, _, d in MESH_ATTN])
+def test_cuda_decode_attention_sharded_equals_the_cpu(cuda, pos, window, cap,
+                                                      dtype):
+    from repro_torch.models import layers as TL
+    g = torch.Generator().manual_seed(pos)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype) for shape in (
+        (4, 1, 8, 16), (4, 64, 2, 16), (4, 64, 2, 16)))
+    kw = dict(cache_pos=pos, window=window, logit_cap=cap,
+              plan=_mesh_plan("decode"))
+    want = TL.decode_attention_sharded(q, k, v, **kw)
+    got = TL.decode_attention_sharded(q.to(cuda), k.to(cuda), v.to(cuda),
+                                      **kw)
+    assert got.dtype == dtype and got.device.type == "cuda"
+    tol = 2e-3 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,experts,top_k,cf", [
+    ("seq", 4, 2, 4.0), ("seq", 8, 2, 1.25), ("decode", 4, 2, 1.25),
+    ("decode", 32, 8, 4.0)])
+def test_cuda_moe_sharded_equals_the_cpu(cuda, form, experts, top_k, cf):
+    """Both forms in f32, drops included: the same slot for every
+    (token, k) entry of every rank, and the output, aux and gradients
+    within 2e-3 of the CPU's."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import layers as TL
+    from repro_torch.models import moe_sharded as TMS
+    from repro_torch.models.config import reduced
+    cfg = reduced(configs.get("kimi_k2"))
+    cfg = dataclasses.replace(cfg, d_model=32, moe=dataclasses.replace(
+        cfg.moe, num_experts=experts, top_k=top_k, capacity_factor=cf))
+    g = torch.Generator().manual_seed(experts)
+    p = TL.init_moe(g, cfg, dtype=torch.float32)
+    shape = (4, 32, 32) if form == "seq" else (16, 1, 32)
+    x = torch.randn(shape, generator=g) + 1.0
+    plan = _mesh_plan(form)
+    r_c = TMS.sharded_route(p, x, cfg, plan)
+    r_g = TMS.sharded_route({k_: v.to(cuda) for k_, v in p.items()},
+                            x.to(cuda), cfg, plan)
+    assert torch.equal(r_g.slot.cpu(), r_c.slot)
+    assert torch.equal(r_g.eids.cpu(), r_c.eids)
+    outs = []
+    for dev in ("cpu", cuda):
+        pd = {k_: v.detach().to(dev).requires_grad_() for k_, v in p.items()}
+        xd = x.detach().to(dev).requires_grad_()
+        out, aux = TL.moe(pd, xd, cfg, plan=plan)
+        (out.square().sum() + aux).backward()
+        outs.append([t.detach().cpu() for t in (
+            out, aux, xd.grad, *(pd[k_].grad for k_ in sorted(pd)))])
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(2, 4), (4, 2)])
+def test_cuda_two_layer_collectives_equal_the_cpu(cuda, grid):
+    from repro_torch import compat as C
+    from repro_torch.core import hierarchical as H
+    R = C.Ranks.of(C.EmulatedMesh(grid, ("pod", "ici")), ("pod", "ici"))
+    g = torch.Generator().manual_seed(grid[0])
+    x = torch.randn(*grid, 1000, 3, generator=g)
+    want = H.two_layer_psum(x, R, "ici", "pod")
+    got = H.two_layer_psum(x.to(cuda), R, "ici", "pod").cpu()
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    a = torch.arange(8 * 8 * 5, dtype=torch.int32).reshape(*grid, 8, 5)
+    for t in (a, a.to(torch.bfloat16)):
+        want = H.two_layer_all_to_all(t, R, "ici", "pod")
+        got = H.two_layer_all_to_all(t.to(cuda), R, "ici", "pod").cpu()
+        assert torch.equal(got, want)
+        assert torch.equal(got.reshape(8, 8, 5),
+                           t.reshape(8, 8, 5).transpose(0, 1))
+    res = torch.zeros_like(x)
+    out_c, res_c = H.compressed_psum(x, res, R, "ici", "pod")
+    out_g, res_g = H.compressed_psum(x.to(cuda), res.to(cuda), R, "ici",
+                                     "pod")
+    step = float(x.sum(1).abs().max() / 127)
+    assert (out_g.cpu() - out_c).abs().max() <= step
+    assert (res_g.cpu() - res_c).abs().max() <= step

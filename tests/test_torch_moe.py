@@ -155,12 +155,6 @@ def test_moe_dense_gradients_match_the_reference():
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(g_j[1]), **TOL)
 
 
-def test_moe_asked_for_a_mesh_raises():
-    cfg_j, cfg_t, p_j, p_t, x = _case(16, 2, 1.0)
-    with pytest.raises(NotImplementedError, match="moe_sharded"):
-        TL.moe(p_t, torch.from_numpy(x), cfg_t, mesh=object())
-
-
 def test_dropped_entries_write_no_row_of_the_dispatch():
     """Every dropped entry's slot is the spare row past ``E * cap``,
     every kept one a distinct row below it."""
