@@ -92,7 +92,14 @@ bfloat16 and uint8 payloads), then drives the main paths:
   (``phase_serve_restore``): ``launch.serve.restore_params`` reads it
   through the planned collective read with the node cache and without,
   each restored state byte for byte the saved one, and ``generate``'s
-  tokens equal to those of the state the training run ended with.
+  tokens equal to those of the state the training run ended with;
+* gemma2-9b's roofline cells (``phase_roofline``): ``train_4k`` (depth
+  2, batch 1), ``prefill_32k`` (all 42 layers, batch 1) and
+  ``decode_32k`` (42 layers, batch 4 against a seeded 32768-long cache)
+  at full width in bf16, each step from ``launch.steps.input_specs`` on
+  real tensors, timed, counted by ``launch.op_analysis`` (equal to the
+  ``meta`` trace's FLOPs, which it requires) and set against the H100's
+  roofline terms, with ``mfu`` and ``hfu``.
 
 Every phase prints one JSON line; any failed check raises, and the run
 exits non-zero. The line before the last lists every kernel with its
@@ -121,13 +128,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 REPS = 10                     # timed runs per kernel measurement
 HOLD_CYCLES = 400_000         # about 0.2 ms of device clock: see time_ms
-FP32_OPS_PER_S = 67e12        # H100 SXM non-tensor float32 rate; no
-                              # int32 row in the table, used for compares
-BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
-TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 tensor-core rate
 # attention: atol = rtol per element (f32: test_flash_kernel.py's; bf16:
 # one bf16 ulp, 2^-7 relative) and a relative L2 distance for both
 ATTN_TOL = {"bfloat16": 8e-3, "float32": 5e-3}
@@ -200,6 +202,33 @@ def sass_counts(nvcc: str, lib: Path) -> dict:
     return counts
 
 
+# The H100 SXM's data-sheet peaks, ``repro_torch.launch.mesh``'s, set once
+# by ``load_peaks``: ``HBM_BW`` (device memory), ``PEAK_FLOPS_BF16`` /
+# ``_TF32`` (dense tensor-core rates), ``PEAK_FLOPS_F32`` (float32 outside
+# the tensor cores; no int32 row in the table, so the I/O kernels'
+# compares are bounded at it)
+HBM_BW = PEAK_FLOPS_BF16 = PEAK_FLOPS_TF32 = PEAK_FLOPS_F32 = None
+
+
+def load_peaks() -> None:
+    """Set the peaks above from ``repro_torch.launch.mesh`` (``src/`` on
+    the path)."""
+    global HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_TF32, PEAK_FLOPS_F32
+    from repro_torch.launch import mesh
+    HBM_BW, PEAK_FLOPS_F32 = mesh.HBM_BW, mesh.PEAK_FLOPS_F32
+    PEAK_FLOPS_BF16, PEAK_FLOPS_TF32 = mesh.PEAK_FLOPS_BF16, \
+        mesh.PEAK_FLOPS_TF32
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -240,8 +269,8 @@ def time_ms(torch, fn, reps: int, flush=None) -> float:
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = bytes_moved / HBM_BW * 1e3
+    t_ops = ops / PEAK_FLOPS_F32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -541,23 +570,6 @@ def zero_skip_case(torch, fused_round, ref, rows, n, dtype, gen, dev, timed,
     return enc, dec
 
 
-def attention_work(torch, b, sq, hq, skv, causal, window, q_offset,
-                   kv_len):
-    """The work this call's masks leave: unmasked (query, key) pairs
-    summed over the batch and the query heads, and the number of keys
-    some query sees (the keys the function must read)."""
-    s = torch.arange(sq, dtype=torch.int64) + q_offset
-    hi = torch.full_like(s, min(skv, skv if kv_len is None else kv_len))
-    if causal:
-        hi = torch.minimum(hi, s + 1)
-    lo = torch.zeros_like(s)
-    if window is not None:
-        lo = (s - window + 1).clamp(min=0)
-    live = hi > lo
-    keys = int(hi[live].max() - lo[live].min()) if bool(live.any()) else 0
-    return b * hq * int((hi - lo).clamp(min=0).sum()), keys
-
-
 def attn_err(got, want, tol: float, rel_l2: float = ATTN_REL_L2) -> dict:
     """Max |got - want|, the relative L2 distance, the scale of ``want``
     (its root mean square), and whether both limits hold: every element
@@ -585,13 +597,14 @@ def attention_bound(torch, q_shape, k_shape, itemsize, causal, window,
     rate."""
     b, sq, hq, hd = q_shape
     skv, hkv = k_shape[1], k_shape[2]
-    pairs, keys = attention_work(torch, b, sq, hq, skv, causal, window,
-                                 q_offset, kv_len)
-    qk_peak = BF16_OPS_PER_S if itemsize == 2 else TF32_OPS_PER_S
+    from repro_torch.launch.op_analysis import attention_work
+    pairs, keys = attention_work(b, sq, hq, skv, causal, window, q_offset,
+                                 kv_len)
+    qk_peak = PEAK_FLOPS_BF16 if itemsize == 2 else PEAK_FLOPS_TF32
     t_ops = (2 * hd * pairs / qk_peak
-             + 2 * hd * pairs / BF16_OPS_PER_S) * 1e3
+             + 2 * hd * pairs / PEAK_FLOPS_BF16) * 1e3
     t_bytes = (2 * b * sq * hq * hd + 2 * b * keys * hkv * hd) \
-        * itemsize / HBM_BYTES_PER_S * 1e3
+        * itemsize / HBM_BW * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", pairs, keys)
 
@@ -3541,16 +3554,16 @@ def bwd_bound(torch, q_shape, k_shape, itemsize, causal, window):
     of the type (TF32 for f32: the least time the card could take; the
     kernel itself runs f32 FMAs, whose time at 67 TFLOP/s is beside)."""
     b, sq, hq, hd = q_shape
-    pairs, _ = attention_work(torch, b, sq, hq, k_shape[1], causal, window,
-                              0, None)
+    from repro_torch.launch.op_analysis import attention_work
+    pairs, _ = attention_work(b, sq, hq, k_shape[1], causal, window, 0, None)
     ops = 10 * hd * pairs
-    peak = BF16_OPS_PER_S if itemsize == 2 else TF32_OPS_PER_S
+    peak = PEAK_FLOPS_BF16 if itemsize == 2 else PEAK_FLOPS_TF32
     t_ops = ops / peak * 1e3
     n_q = b * sq * hq * hd
     n_k = k_shape[0] * k_shape[1] * k_shape[2] * k_shape[3]
-    t_bytes = (4 * n_q + 4 * n_k) * itemsize / HBM_BYTES_PER_S * 1e3
+    t_bytes = (4 * n_q + 4 * n_k) * itemsize / HBM_BW * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", pairs, ops / FP32_OPS_PER_S * 1e3)
+            else "bytes", pairs, ops / PEAK_FLOPS_F32 * 1e3)
 
 
 def bwd_pass_ms(torch, q, k, v, out, dout, kw, reps, flush) -> dict:
@@ -4014,6 +4027,248 @@ def phase_train(torch, dev, tmp):
     return launches, routes, pack_case, trained
 
 
+# gemma2-9b's roofline cells (launch/shapes.py), cut only as far as one
+# card's 80 GB forces: (shape, layers, global batch, why)
+ROOFLINE_CELLS = (
+    ("train_4k", 2, 1,
+     "42 layers' bf16 weights, gradients and AdamW moments take 74 GB "
+     "before any activation; batch 256's f32 logits alone 1.07 TB"),
+    ("prefill_32k", 42, 1,
+     "each sequence's 32768-long KV caches take 11.3 GB beside 18.5 GB "
+     "of weights: batch 32 would need 361 GB"),
+    ("decode_32k", 42, 4,
+     "each sequence's KV caches take 11.3 GB: batch 4 takes 45.1 GB, "
+     "batch 128 would need 1.44 TB"),
+)
+ROOFLINE_REPS = 5             # timed steps a cell, after one warm-up
+ROOFLINE_ROUTES = {"train_4k": ("tc_prefill",),
+                   "prefill_32k": ("tc_prefill",),
+                   "decode_32k": ("split_decode",)}
+
+
+def attention_signature(q, k, kw) -> tuple:
+    """A hashable key of one attention call: q's and k's shapes, the
+    type, the masks."""
+    return (tuple(q.shape), tuple(k.shape), str(q.dtype).split(".")[-1],
+            tuple(sorted(kw.items())))
+
+
+def roofline_attention_checks(torch, dev, cell, calls) -> list:
+    """The kernel at every attention shape ``cell``'s step gave it
+    (``calls``: ``attention_signature`` -> calls in the counted step), on
+    seeded inputs of that shape and type, against
+    ``ref.flash_attention_ref`` within ``ATTN_TOL``, with the
+    ``planted_faults`` of that call required to fail the same check:
+    the 32768-token prefills (global and window 4096) and the decode
+    against a 32768-long cache at position 32767, beyond the 8784 keys
+    of ``FLASH_CASES``. Each call must launch once, on the route
+    ``flash._route`` picks and the cell expects (``ROOFLINE_ROUTES``).
+    These launches fall after the cell's counts are read and before the
+    next cell's reset: they count in no run of the main path."""
+    from repro_torch.kernels import flash, ops, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    recs = []
+    for (q_shape, k_shape, dname, kw_items), n in calls.items():
+        kw = dict(kw_items)
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                   for s in (q_shape, k_shape, k_shape))
+        route = flash._route(q_shape[0], q_shape[1], q_shape[2],
+                             k_shape[2], q_shape[3], dtype)
+        before = dict(flash.flash_attention_fused.launches_by_route)
+        got = ops.fused_attention(q, k, v, **kw)
+        launched = {r: c - before[r] for r, c in
+                    flash.flash_attention_fused.launches_by_route.items()
+                    if c != before[r]}
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        tol = ATTN_TOL[dname]
+        check = attn_err(got, want, tol)
+        planted = {f: attn_err(fn(), want, tol) for f, fn in
+                   planted_faults(ops, q, k, v, got, kw).items()}
+        del got, want
+        bound_ms, bound_by, pairs, keys = attention_bound(
+            torch, q_shape, k_shape, q.element_size(), kw["causal"],
+            kw["window"], kw["q_offset"], kw.get("kv_len"))
+        rec = {"phase": "roofline_attention", "cell": cell, "q": q_shape,
+               "kv": k_shape, "dtype": dname, **kw, "calls_in_step": n,
+               "route": route, "launched": launched,
+               "max_abs_err": check["max_abs_err"],
+               "rel_l2": check["rel_l2"], "rms_want": check["rms_want"],
+               "tol": tol, "tol_rel_l2": ATTN_REL_L2,
+               "planted_rel_l2": {f: c["rel_l2"]
+                                  for f, c in planted.items()},
+               "pairs": pairs, "keys_read": keys,
+               "ms": time_ms(torch, lambda: ops.fused_attention(
+                   q, k, v, **kw), 3),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(rec)
+        require(launched == {route: 1} and route in ROOFLINE_ROUTES[cell],
+                f"roofline {cell} attention {q_shape} {k_shape} {kw}: "
+                f"launched {launched}, picked {route}")
+        require(check["within"], f"roofline {cell} attention {q_shape} "
+                f"{k_shape} {kw}: {check}")
+        for fault, c in planted.items():
+            require(not c["within"], f"roofline {cell} attention "
+                    f"{q_shape} {k_shape}: the planted fault {fault} "
+                    f"passes the check: {c}")
+        recs.append(rec)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_roofline(torch, dev, smi=None):
+    """gemma2-9b's ``train_4k``, ``prefill_32k`` and ``decode_32k`` on one
+    card against the H100's roofline: full width, bf16 weights from a
+    seeded generator, the reference's types (bf16 AdamW moments), each
+    cell's step and arguments from ``launch.steps.input_specs`` on real
+    tensors, cut as ``ROOFLINE_CELLS`` says (``reduced`` in its line).
+
+    Per cell: one warm-up step, ``ROOFLINE_REPS`` steps timed by CUDA
+    events (median), and one more step, untimed, under a
+    ``launch.op_analysis.OpCounter`` (so the counter adds no host work to
+    the timed ones); the peak memory over the cell; the same cut cell's
+    counts traced on ``meta`` (``launch.roofline.analyze_cell``, one
+    device); ``model_flops``; the three roofline terms of the card's
+    counts at the H100's peaks (``launch/mesh.py``); ``mfu`` = model
+    FLOPs / (step seconds x 989e12), ``hfu`` = counted FLOPs / (step
+    seconds x 989e12), ``bound_over_step`` = the counts' bound / step
+    time (the meta trace's ``roofline_fraction``, the reference's model
+    FLOPs at peak over the bound, beside it under ``meta``). A train
+    step's parameters and moments feed the next; a decode step writes
+    position 32767 of a seeded 32768-long cache each time. The counted
+    step also records every attention call, and after the cell is freed
+    ``roofline_attention_checks`` holds the kernel against its plain
+    version at each of those shapes.
+
+    Requires: the card's counted FLOPs equal the ``meta`` trace's, the
+    peak is at least the trace's argument bytes, every step's output is
+    finite, and the routes launched are the cell's (``ROOFLINE_ROUTES``;
+    the backward kernel in train), the attention checks pass, and the
+    longest keys checked are the cell's seq. Launch counts are set to 0 before the
+    timed steps and read after the counted one. Returns the launches and
+    the attention's routes. ``smi``: the card's ``nvidia_smi()`` line
+    (queried when not given)."""
+    import dataclasses
+    from repro_torch import configs, kernels
+    from repro_torch._tree import leaves
+    from repro_torch.kernels import flash
+    from repro_torch.launch import op_analysis, roofline, shapes, steps
+    from repro_torch.models import layers
+    from repro_torch.models.sharding import unsharded
+    base = configs.get("gemma2_9b")
+    smi = smi or nvidia_smi()
+    total, total_routes = None, route_counts()
+    for name, depth, gb, why in ROOFLINE_CELLS:
+        held = free_device(torch, dev)          # what earlier phases keep
+        full = shapes.shape(name)
+        cell = dataclasses.replace(full, global_batch=gb)
+        cfg = dataclasses.replace(base, n_layers=depth)
+        reduced = {"n_layers": [base.n_layers, depth],
+                   "global_batch": [full.global_batch, gb], "why": why}
+        meta = roofline.analyze_cell("gemma2_9b", name, "one", cfg=cfg,
+                                     cell=cell, device="meta")
+        fn, args, _, _ = steps.input_specs("gemma2_9b", cell, unsharded(),
+                                           cfg=cfg, device=dev)
+        args = list(args)
+
+        def step():
+            out = fn(*args)
+            if cell.kind == "train":        # the next step's state
+                args[0], args[1] = out[0], out[1]
+                return out[2]
+            return out[0]
+
+        def finite(t):
+            return bool(torch.isfinite(t.float()).all())
+
+        ok = finite(step())                                 # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(ROOFLINE_REPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = step()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+            ok = ok and finite(out)
+            del out
+        calls = {}
+
+        def seen(q, k, v, kw):
+            key = attention_signature(q, k, kw)
+            calls[key] = calls.get(key, 0) + 1
+
+        with op_analysis.OpCounter() as counter, \
+                patched_attention(layers, watching(seen)):
+            out = step()
+        torch.cuda.synchronize()
+        ok = ok and finite(out)
+        del out
+        launches = kernels.launch_counts()
+        routes = dict(flash.flash_attention_fused.launches_by_route)
+        peak = torch.cuda.max_memory_allocated(dev)
+        del fn, args
+        cost = counter.cost
+        ms = statistics.median(times)
+        terms = roofline.roofline_terms(cost, 1)
+        mf = roofline.model_flops(cfg, cell)
+        step_s = ms / 1e3
+        rec = {"phase": "roofline", "cell": name, "arch": cfg.name,
+               "card": smi, "reduced": reduced, "seq": cell.seq,
+               "step_ms": ms, "steps_ms": times,
+               "peak_mem_bytes": peak, "held_before_bytes": held,
+               "counted": {"flops": cost.flops, "bytes": cost.bytes,
+                           "attention_flops": cost.attention_flops,
+                           "flops_by_dtype": cost.flops_by_dtype,
+                           "coll_bytes": cost.coll_bytes},
+               "meta": {"flops": meta["flops_global"],
+                        "bytes": meta["bytes_per_dev"],
+                        "argument_bytes":
+                            meta["mem_per_dev"]["argument_bytes"],
+                        "output_bytes": meta["mem_per_dev"]["output_bytes"],
+                        "roofline_fraction": meta["roofline_fraction"],
+                        "trace_s": meta["analyze_s"]},
+               "model_flops": mf,
+               "t_compute_s": terms["t_compute_s"],
+               "t_memory_s": terms["t_memory_s"],
+               "t_collective_s": terms["t_collective_s"],
+               "dominant": terms["dominant"], "bound_s": terms["bound_s"],
+               "mfu": mf / (step_s * PEAK_FLOPS_BF16),
+               "hfu": cost.flops / (step_s * PEAK_FLOPS_BF16),
+               "bound_over_step": terms["bound_s"] / step_s,
+               "outputs_finite": ok, "launches": launches,
+               "flash_launches_by_route": routes}
+        emit(rec)
+        require(cost.flops == meta["flops_global"],
+                f"roofline {name}: the card counted {cost.flops} FLOPs, "
+                f"the meta trace {meta['flops_global']}")
+        require(peak >= meta["mem_per_dev"]["argument_bytes"],
+                f"roofline {name}: peak {peak} below the arguments' "
+                f"{meta['mem_per_dev']['argument_bytes']} bytes")
+        require(ok, f"roofline {name}: a step's output is not finite")
+        require(sum(routes.values()) == launches["flash_attention_fused"]
+                == sum(routes[r] for r in ROOFLINE_ROUTES[name]) > 0,
+                f"roofline {name}: attention routes {routes}")
+        require((launches["flash_attention_bwd"] > 0)
+                == (cell.kind == "train"),
+                f"roofline {name}: backward launches {launches}")
+        torch.cuda.empty_cache()
+        checked = roofline_attention_checks(torch, dev, name, calls)
+        require(max(c["kv"][1] for c in checked) == cell.seq,
+                f"roofline {name}: the attention's keys "
+                f"{[c['kv'] for c in checked]}, not the cell's {cell.seq}")
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+        total_routes = add_routes(total_routes, routes)
+    free_device(torch, dev)
+    return total, total_routes
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # torch.compile (flex_attention's library time) keeps its caches in
@@ -4032,6 +4287,7 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    load_peaks()
     from repro_torch.kernels import build
 
     dev = torch.device("cuda", 0)
@@ -4044,10 +4300,7 @@ def main() -> int:
                   or "spill" in ln]
     emit({"phase": "build", "seconds": build_s, "library": lib_path.name,
           "ptxas": ptxas, "sass": sass_counts(build._nvcc(), lib_path)})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "torch": torch.__version__,
@@ -4079,12 +4332,14 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    runs = (served, moe, piped, ssm, vlm, audio, trained, restored)
+    roofed, roofed_routes = phase_roofline(torch, dev, smi)
+    runs = (served, moe, piped, ssm, vlm, audio, trained, restored, roofed)
     launches = {k: launches[k] + patterns[k] + hosted[k]
                 + sum(r[k] for r in runs) for k in launches}
     routes = {r: sum(rr[r] for rr in (
         served_routes, moe_routes, piped_routes, ssm_routes, vlm_routes,
-        audio_routes, trained_routes, restored_routes)) for r in served_routes}
+        audio_routes, trained_routes, restored_routes, roofed_routes))
+        for r in served_routes}
     require(sum(routes.values()) == launches["flash_attention_fused"],
             f"flash routes {routes} vs {launches['flash_attention_fused']}")
     # pack's line: its largest shape, a window of a training save's

@@ -21,6 +21,10 @@ where its ranks must differ.
 * ``ppermute``: indexing the rank axis by the permutation;
 * ``axis_index``: an ``arange`` over the axis.
 
+Each collective reports its kind, one rank's result and its group to
+the active ``launch.op_analysis`` counters through ``repro_torch._cost``
+(the dry-run's collective bytes).
+
 :func:`shard_map` splits global tensors into per-rank tensors by a
 ``PartitionSpec``-like tuple (:class:`P`) and joins the body's outputs
 back. Only the axes a call's plan uses are emulated: along any other
@@ -36,6 +40,8 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch import _cost
 
 
 class P(tuple):
@@ -134,16 +140,30 @@ def _full(x: torch.Tensor, ranks: Ranks, axis) -> torch.Tensor:
     return x.expand(shape)
 
 
-def psum(x: torch.Tensor, ranks: Ranks, axis) -> torch.Tensor:
+def _counted(kind: str, out: torch.Tensor, ranks: Ranks,
+             axis) -> torch.Tensor:
+    """``out``, after reporting it to the active cost counters as one
+    collective of ``kind`` over the ranks of ``axis``."""
+    _cost.count_collective(kind, out, ranks.n, ranks.size(axis))
+    return out
+
+
+def _psum(x: torch.Tensor, ranks: Ranks, axis) -> torch.Tensor:
     return _full(x, ranks, axis).sum(ranks.dims(axis), keepdim=True)
 
 
+def psum(x: torch.Tensor, ranks: Ranks, axis) -> torch.Tensor:
+    return _counted("all-reduce", _psum(x, ranks, axis), ranks, axis)
+
+
 def pmax(x: torch.Tensor, ranks: Ranks, axis) -> torch.Tensor:
-    return _full(x, ranks, axis).amax(ranks.dims(axis), keepdim=True)
+    return _counted("all-reduce", _full(x, ranks, axis).amax(
+        ranks.dims(axis), keepdim=True), ranks, axis)
 
 
 def pmean(x: torch.Tensor, ranks: Ranks, axis) -> torch.Tensor:
-    return _full(x, ranks, axis).mean(ranks.dims(axis), keepdim=True)
+    return _counted("all-reduce", _full(x, ranks, axis).mean(
+        ranks.dims(axis), keepdim=True), ranks, axis)
 
 
 def psum_scatter(x: torch.Tensor, ranks: Ranks, axis: str, dim: int,
@@ -152,7 +172,7 @@ def psum_scatter(x: torch.Tensor, ranks: Ranks, axis: str, dim: int,
     (tiled), or index i of a ``dim`` of the axis's size (not tiled)."""
     a, n = ranks.dims(axis)[0], ranks.size(axis)
     loc = ranks.n + dim
-    s = psum(x, ranks, axis)
+    s = _psum(x, ranks, axis)
     if tiled:
         if s.shape[loc] % n:
             raise ValueError(f"psum_scatter: dim {dim} of {s.shape[loc]} "
@@ -161,7 +181,8 @@ def psum_scatter(x: torch.Tensor, ranks: Ranks, axis: str, dim: int,
     elif s.shape[loc] != n:
         raise ValueError(f"psum_scatter: dim {dim} is {s.shape[loc]}, not "
                          f"the {n} ranks of {axis!r}")
-    return s.transpose(a, loc).squeeze(loc)
+    return _counted("reduce-scatter", s.transpose(a, loc).squeeze(loc),
+                    ranks, axis)
 
 
 def all_gather(x: torch.Tensor, ranks: Ranks, axis: str, dim: int,
@@ -173,7 +194,7 @@ def all_gather(x: torch.Tensor, ranks: Ranks, axis: str, dim: int,
     y = _full(x, ranks, axis).movedim(a, loc - 1)
     if tiled:
         y = y.flatten(loc - 1, loc)
-    return y.unsqueeze(a)
+    return _counted("all-gather", y.unsqueeze(a), ranks, axis)
 
 
 def all_to_all(x: torch.Tensor, ranks: Ranks, axis: str, split_axis: int,
@@ -192,11 +213,13 @@ def all_to_all(x: torch.Tensor, ranks: Ranks, axis: str, split_axis: int,
                              f"{y.shape[ls]} does not split over {n} ranks")
         y = y.unflatten(ls, (n, y.shape[ls] // n)).transpose(a, ls)
         # the source-rank dim, now at ls, goes just before the concat dim
-        return y.movedim(ls, lc).flatten(lc, lc + 1)
+        return _counted("all-to-all", y.movedim(ls, lc).flatten(lc, lc + 1),
+                        ranks, axis)
     if y.shape[ls] != n:
         raise ValueError(f"all_to_all: dim {split_axis} is {y.shape[ls]}, "
                          f"not the {n} ranks of {axis!r}")
-    return y.transpose(a, ls).movedim(ls, lc)
+    return _counted("all-to-all", y.transpose(a, ls).movedim(ls, lc), ranks,
+                    axis)
 
 
 def ppermute(x: torch.Tensor, ranks: Ranks, axis: str,
@@ -214,7 +237,7 @@ def ppermute(x: torch.Tensor, ranks: Ranks, axis: str,
         shape = [1] * y.ndim
         shape[a] = n
         y = y * keep.reshape(shape).to(y.dtype)
-    return y
+    return _counted("collective-permute", y, ranks, axis)
 
 
 def to_ranks(x: torch.Tensor, ranks: Ranks, spec) -> torch.Tensor:

@@ -80,6 +80,7 @@ import math
 
 import torch
 
+from repro_torch import _cost
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (F32_ROWS, flash_attention_bwd_ref,
                                      flash_attention_ref)
@@ -327,13 +328,18 @@ class FlashAttention(torch.autograd.Function):
     """Attention with its gradient: the forward is
     :func:`flash_attention_ragged` (the routed kernel on the card, the
     plain version on the CPU), the backward :func:`flash_attention_bwd`
-    (the backward kernel on the card, the plain backward on the CPU)."""
+    (the backward kernel on the card, the plain backward on the CPU). On
+    ``meta`` tensors (a dry-run's trace) both give their results' shapes
+    and types alone: the output is q's, the gradients the inputs'."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, logit_cap, q_offset, kv_len):
-        out = flash_attention_ragged(q, k, v, causal=causal, window=window,
-                                     logit_cap=logit_cap, q_offset=q_offset,
-                                     kv_len=kv_len)
+        if q.device.type == "meta":
+            out = torch.empty_like(q)
+        else:
+            out = flash_attention_ragged(q, k, v, causal=causal,
+                                         window=window, logit_cap=logit_cap,
+                                         q_offset=q_offset, kv_len=kv_len)
         ctx.save_for_backward(q, k, v, out)
         ctx.kw = dict(causal=causal, window=window, logit_cap=logit_cap,
                       q_offset=q_offset, kv_len=kv_len)
@@ -342,6 +348,14 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
-                                         **ctx.kw)
+        kw = ctx.kw
+        _cost.count_attention(
+            q, k, causal=kw["causal"], window=kw["window"],
+            q_offset=kw["q_offset"], kv_len=kw["kv_len"], backward=True)
+        with _cost.uncounted():
+            if q.device.type == "meta":
+                dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            else:
+                dq, dk, dv = flash_attention_bwd(q, k, v, out,
+                                                 dout.contiguous(), **kw)
         return dq, dk, dv, None, None, None, None, None

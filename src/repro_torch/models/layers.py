@@ -10,19 +10,19 @@ paths, emulated on a leading rank axis (``compat``): the decode
 attention over a sequence-sharded KV cache
 (:func:`decode_attention_sharded`, flash-decoding over the model axis)
 and the MoE's explicitly partitioned dispatch (``moe_sharded.py``).
-Attention on a CUDA tensor runs the Hopper kernel through
-``kernels.ops.fused_attention`` (and, where an input requires grad, its
-backward kernel in the backward pass); on a CPU tensor it runs the plain
-version, ``kernels.ref.flash_attention_ref``, which autograd
-differentiates. The dense matrix products are ``torch.einsum`` calls,
-as the reference leaves them to XLA; so are the MoE's dispatch (a
-stable sort, prefix sums, index writes and gathers), the SSD scan and
-the sharded decode attention, which the reference writes in ``jnp``
-with no Pallas kernel. The attention's projections and the MLP promote
-mixed operand types as ``jnp.einsum`` does (:func:`_mm`): the enc-dec
-reference feeds f32 frames to bf16 weights, so its encoder runs in f32,
-and its decoder's cross-attention takes bf16 queries against f32 keys
-and values.
+Attention goes through ``kernels.ops.fused_attention``: on a CUDA tensor
+the Hopper kernel (and, where an input requires grad, its backward
+kernel in the backward pass); on a CPU tensor the plain version,
+``kernels.ref.flash_attention_ref``, whose backward is its autograd
+gradient (``ref.flash_attention_bwd_ref``). The dense matrix products
+are ``torch.einsum`` calls, as the reference leaves them to XLA; so are
+the MoE's dispatch (a stable sort, prefix sums, index writes and
+gathers), the SSD scan and the sharded decode attention, which the
+reference writes in ``jnp`` with no Pallas kernel. The attention's
+projections and the MLP promote mixed operand types as ``jnp.einsum``
+does (:func:`_mm`): the enc-dec reference feeds f32 frames to bf16
+weights, so its encoder runs in f32, and its decoder's cross-attention
+takes bf16 queries against f32 keys and values.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch import compat as C
 from repro_torch.compat import P
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe_sharded import moe_sharded
 
@@ -76,7 +76,16 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _normal(gen: torch.Generator, shape, dtype, scale: float):
+def device_of(gen: torch.Generator | None) -> torch.device:
+    """Where an init draws: the generator's device, or ``meta`` for no
+    generator (shapes and types only, nothing drawn or allocated: the
+    dry-run's parameter specs)."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def _normal(gen: torch.Generator | None, shape, dtype, scale: float):
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     return torch.randn(shape, generator=gen, dtype=dtype,
                        device=gen.device).mul_(scale)
 
@@ -97,7 +106,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     if cfg.qkv_bias:
         for name, n in (("bq", hq), ("bk", hkv), ("bv", hkv)):
             p[name] = torch.zeros((*lead, n * hd), dtype=dtype,
-                                  device=gen.device)
+                                  device=device_of(gen))
     return p
 
 
@@ -134,16 +143,15 @@ def flash_attention(q, k, v, *, causal: bool, window: int | None,
                     kv_len: int | None = None) -> torch.Tensor:
     """GQA attention. q: [B, Sq, Hq, hd]; k, v: [B, Skv, Hkv, hd].
     q_offset: position of q[0] within the kv sequence; kv_len: the valid
-    kv prefix (decode cache), or None. CUDA tensors go through the
-    Hopper kernel (``ops.fused_attention``), CPU tensors through the
-    plain version."""
-    if q.device.type == "cuda":
-        return ops.fused_attention(q, k, v, causal=causal, window=window,
-                                   logit_cap=logit_cap, q_offset=q_offset,
-                                   kv_len=kv_len)
-    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   logit_cap=logit_cap, q_offset=q_offset,
-                                   kv_len=kv_len)
+    kv prefix (decode cache), or None. ``ops.fused_attention``: CUDA
+    tensors go through the Hopper kernel, CPU tensors through the plain
+    version (both through ``flash.FlashAttention`` where an input
+    requires grad: on the CPU its backward is the plain version's
+    autograd gradient), counted by formula under a
+    ``launch.op_analysis`` counter."""
+    return ops.fused_attention(q, k, v, causal=causal, window=window,
+                               logit_cap=logit_cap, q_offset=q_offset,
+                               kv_len=kv_len)
 
 
 def decode_attention_sharded(q, k_cache, v_cache, *, cache_pos: int,
@@ -307,9 +315,10 @@ class MoERoute(NamedTuple):
     token's top-k experts, ties to the lower index, gates renormalised),
     the load-balancing ``aux`` loss, ``order`` (the stable sort of the
     flattened ``(token, k)`` entries by expert), ``ok`` (in that sorted
-    order: the entry fits its expert's ``cap`` slots) and ``slot`` (its
+    order: the entry fits its expert's ``cap`` slots), ``slot`` (its
     row of the ``[E * cap]`` dispatch buffer; ``E * cap`` for a dropped
-    entry)."""
+    entry) and ``counts`` (``[E]``: the entries each expert was picked
+    for, drops included)."""
     gates: torch.Tensor
     eids: torch.Tensor
     aux: torch.Tensor
@@ -317,6 +326,7 @@ class MoERoute(NamedTuple):
     ok: torch.Tensor
     slot: torch.Tensor
     cap: int
+    counts: torch.Tensor
 
     def dropped(self) -> torch.Tensor:
         """``[N, k]`` bool: the (token, k) entries over capacity."""
@@ -362,12 +372,14 @@ def moe_route(p: dict, xt: torch.Tensor, cfg: ModelConfig) -> MoERoute:
     cap = moe_capacity(n, cfg)
     flat_e = eids.reshape(-1)                                      # [N*k]
     ranked, order = torch.sort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=e)
+    # bincount's counts, by a scatter (bincount has no meta kernel)
+    counts = torch.zeros(e, dtype=torch.long, device=xt.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(n * k, device=xt.device) - starts[ranked]
     ok = pos < cap
     slot = torch.where(ok, ranked * cap + pos, e * cap)
-    return MoERoute(gates, eids, aux, order, ok, slot, cap)
+    return MoERoute(gates, eids, aux, order, ok, slot, cap, counts)
 
 
 def moe(p: dict, x: torch.Tensor, cfg: ModelConfig, plan=None):
@@ -431,7 +443,7 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
 
     def const(n, value):
         return torch.full((*lead, n), value, dtype=torch.float32,
-                          device=gen.device)
+                          device=device_of(gen))
     return {
         "wx": _normal(gen, (*lead, d, di), dtype, sc),
         "wz": _normal(gen, (*lead, d, di), dtype, sc),

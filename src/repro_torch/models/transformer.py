@@ -42,6 +42,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.compat import P
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -60,7 +61,7 @@ def _init_slot(gen: torch.Generator, cfg: ModelConfig, j: int,
     one kind)."""
     lead = (n_blocks,)
     norm = torch.zeros((n_blocks, cfg.d_model), dtype=torch.float32,
-                       device=gen.device)
+                       device=L.device_of(gen))
     p: Params = {"ln1": norm, "ln2": norm.clone()}
     if cfg.is_attn_layer(j):
         p["attn"] = L.init_attention(gen, cfg, dtype, lead)
@@ -92,20 +93,25 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
     (``n_enc_layers`` deep), ``enc_norm`` and ``xattn`` (``{"xattn":
     attention, "lnx": norm}`` stacked on ``[n_layers]``). The numbers
     differ from the reference's (another generator);
-    ``weights.params_from_numpy`` carries the reference's own."""
+    ``weights.params_from_numpy`` carries the reference's own. On
+    ``device="meta"`` nothing is drawn or allocated: the tree's shapes
+    and types (the reference's ``jax.eval_shape`` of its init)."""
     if cfg.n_layers % cfg.block_period:
         raise ValueError(
             f"{cfg.name}: n_layers {cfg.n_layers} not divisible by "
             f"block period {cfg.block_period}")
-    gen = torch.Generator(device=resolve_device(device))
-    gen.manual_seed(seed)
+    dev = resolve_device(device)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     p: Params = {
         # padded_vocab: the reference's TP-shardable tables; sampling
         # masks the pad
         "embed": L._normal(gen, (cfg.padded_vocab, cfg.d_model), dtype,
                            0.02),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                  device=gen.device),
+                                  device=L.device_of(gen)),
         "blocks": _stack_slots(gen, cfg, cfg.n_layers, dtype),
     }
     if not cfg.tie_embeddings:
@@ -114,12 +120,81 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.bfloat16,
     if cfg.enc_dec:
         p["enc_blocks"] = _stack_slots(gen, cfg, cfg.n_enc_layers, dtype)
         p["enc_norm"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                    device=gen.device)
+                                    device=L.device_of(gen))
         p["xattn"] = {
             "xattn": L.init_attention(gen, cfg, dtype, (cfg.n_layers,)),
             "lnx": torch.zeros((cfg.n_layers, cfg.d_model),
-                               dtype=torch.float32, device=gen.device)}
+                               dtype=torch.float32, device=L.device_of(gen))}
     return p
+
+
+def param_shardings(cfg: ModelConfig, plan) -> Params:
+    """The partition spec tree matching :func:`init_params`' structure
+    (the reference's ``param_shardings``, entry for entry, as
+    ``compat.P``).
+
+    TP over ``model`` on the contraction-friendly dim and FSDP/ZeRO-3
+    over the data axes on the other: in the reference's deployment the
+    weights live fully sharded and GSPMD all-gathers each layer's slice
+    at use (the dry-run counts those gathers from these specs:
+    ``launch.op_analysis.implied_collectives``). The stacked leading
+    ``n_blocks`` axis is unsharded. Optimizer states inherit these specs
+    (``launch.steps.opt_state_specs``). On one device the port places
+    nothing by them."""
+    dp, tp = plan.dp, plan.tp
+
+    def _lift(spec: P) -> P:
+        return P(None, *spec)
+
+    def attn_spec():
+        s = {"wq": _lift(P(dp, tp)), "wk": _lift(P(dp, tp)),
+             "wv": _lift(P(dp, tp)), "wo": _lift(P(tp, dp))}
+        if cfg.qkv_bias:
+            s.update({"bq": _lift(P(tp)), "bk": _lift(P(tp)),
+                      "bv": _lift(P(tp))})
+        return s
+
+    def mamba_spec():
+        return {"wx": _lift(P(dp, tp)), "wz": _lift(P(dp, tp)),
+                "wbcdt": _lift(P(dp, None)), "conv": _lift(P(None, None)),
+                "A_log": _lift(P(None)), "D": _lift(P(None)),
+                "dt_bias": _lift(P(None)), "norm": _lift(P(tp)),
+                "out_proj": _lift(P(tp, dp))}
+
+    def moe_spec():
+        return {"router": _lift(P(dp, None)),
+                "wi": _lift(P(tp, dp, None)), "wg": _lift(P(tp, dp, None)),
+                "wo": _lift(P(tp, None, dp))}
+
+    def mlp_spec():
+        return {"wi": _lift(P(dp, tp)), "wg": _lift(P(dp, tp)),
+                "wo": _lift(P(tp, dp))}
+
+    def layer_spec(i: int):
+        s = {"ln1": _lift(P(None)), "ln2": _lift(P(None))}
+        if cfg.is_attn_layer(i):
+            s["attn"] = attn_spec()
+        else:
+            s["mamba"] = mamba_spec()
+        if cfg.is_moe_layer(i):
+            s["moe"] = moe_spec()
+        elif cfg.d_ff:
+            s["mlp"] = mlp_spec()
+        return s
+
+    specs: Params = {
+        "embed": P(tp, dp),
+        "final_norm": P(None),
+        "blocks": {"slots": [layer_spec(j)
+                             for j in range(cfg.block_period)]},
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(tp, dp)
+    if cfg.enc_dec:
+        specs["enc_blocks"] = {"slots": [layer_spec(0)]}
+        specs["enc_norm"] = P(None)
+        specs["xattn"] = {"xattn": attn_spec(), "lnx": _lift(P(None))}
+    return specs
 
 
 # ---------------------------------------------------------------------------

@@ -1307,7 +1307,7 @@ def test_cuda_attention_gradient_goes_through_the_kernel(cuda, monkeypatch):
 
     def refuse(*a, **k):
         raise AssertionError("a plain attention ran on the card")
-    for mod in (t_ref, t_flash, t_layers.ref):
+    for mod in (t_ref, t_flash):
         for name in ("flash_attention_ref", "flash_attention_bwd_ref"):
             if hasattr(mod, name):
                 monkeypatch.setattr(mod, name, refuse)
@@ -1464,3 +1464,85 @@ def test_cuda_two_layer_collectives_equal_the_cpu(cuda, grid):
     step = float(x.sum(1).abs().max() / 127)
     assert (out_g.cpu() - out_c).abs().max() <= step
     assert (res_g.cpu() - res_c).abs().max() <= step
+
+
+# (dtype, q shape, keys, mask kwargs, route): one call of each route
+COUNT_CASES = [
+    (torch.bfloat16, (1, 256, 16, 256), 256,
+     dict(causal=True, window=None, q_offset=0, kv_len=None), "tc_prefill"),
+    (torch.bfloat16, (1, 256, 16, 256), 256,
+     dict(causal=True, window=64, q_offset=0, kv_len=None), "tc_prefill"),
+    (torch.bfloat16, (2, 1, 16, 256), 512,
+     dict(causal=False, window=None, q_offset=300, kv_len=301),
+     "split_decode"),
+    (torch.float32, (1, 128, 4, 64), 160,
+     dict(causal=True, window=None, q_offset=32, kv_len=None), "tc_f32"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("dtype,q_shape,skv,kw,route", COUNT_CASES)
+def test_cuda_counter_counts_fused_attention_as_on_meta(cuda, dtype, q_shape,
+                                                        skv, kw, route,
+                                                        grad):
+    """The ``launch.op_analysis`` counter's FLOPs and bytes for
+    ``ops.fused_attention`` (and, with ``grad``, its backward) on the
+    card equal the same call's on ``meta``: the formula, whatever runs
+    it; the card's call launched its route."""
+    from repro_torch.kernels import flash as t_flash
+    from repro_torch.kernels import ops as t_ops
+    from repro_torch.launch import op_analysis
+    b, sq, hq, hd = q_shape
+    g = torch.Generator(device=cuda).manual_seed(sq)
+    q = torch.randn(q_shape, generator=g, device=cuda, dtype=dtype)
+    k, v = (torch.randn((b, skv, 8 if hq > 8 else hq, hd), generator=g,
+                        device=cuda, dtype=dtype) for _ in range(2))
+    costs = {}
+    before = dict(t_flash.flash_attention_fused.launches_by_route)
+    for dev in (cuda, torch.device("meta")):
+        leaves = [t.detach().to(dev).requires_grad_(grad)
+                  for t in (q, k, v)]
+        with op_analysis.OpCounter() as c:
+            out = t_ops.fused_attention(*leaves, logit_cap=50.0, **kw)
+            if grad:
+                out.backward(torch.ones_like(out))
+        costs[dev.type] = c.cost
+        if dev.type == "cuda":
+            assert bool(torch.isfinite(out).all())
+    card, meta = costs["cuda"], costs["meta"]
+    assert card.flops == meta.flops == card.attention_flops > 0
+    assert card.bytes == meta.bytes
+    assert card.flops_by_dtype == meta.flops_by_dtype
+    after = t_flash.flash_attention_fused.launches_by_route
+    assert after[route] == before[route] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_cuda_input_specs_steps_run_on_the_card_as_traced_on_meta(cuda,
+                                                                  kind):
+    """``launch.steps.input_specs``' step on real tensors at a reduced
+    gemma2 (the card's kernels: ``tc_prefill``, ``split_decode``, the
+    backward) gives finite outputs, and counts the FLOPs the ``meta``
+    trace of the same cell counts."""
+    from repro_torch import configs
+    from repro_torch._tree import leaves
+    from repro_torch.kernels import flash as t_flash
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models.config import reduced
+    cfg = reduced(configs.get("gemma2_9b"), window=6)
+    cell = ShapeCell(kind, kind, 64, 2)
+    bwd = t_flash.flash_attention_bwd.launches
+    card = dryrun.trace_cell("gemma2_9b", cell, "one", cfg=cfg, device=cuda)
+    meta = dryrun.trace_cell("gemma2_9b", cell, "one", cfg=cfg,
+                             device="meta")
+    assert card.cost.flops == meta.cost.flops > 0
+    assert "cuda" in card.cost.devices
+    assert card.argument_bytes == meta.argument_bytes
+    outs = [t for t in leaves(card.outputs) if isinstance(t, torch.Tensor)
+            and t.is_floating_point()]
+    assert outs and all(bool(torch.isfinite(t).all()) for t in outs)
+    if kind == "train":
+        assert t_flash.flash_attention_bwd.launches > bwd
