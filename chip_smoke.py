@@ -93,6 +93,19 @@ bfloat16 and uint8 payloads), then drives the main paths:
   through the planned collective read with the node cache and without,
   each restored state byte for byte the saved one, and ``generate``'s
   tokens equal to those of the state the training run ended with;
+* the reference's executable checkers (``phase_checks``):
+  ``repro_torch.testing.rounds_checks`` and ``spmd_checks`` on the card,
+  every check passing under the CPU run's names, with the I/O kernels
+  launched on their patterns (nested overlaps, domain spanners, seeded
+  random extents, the swapped placement, 1 to 5 rounds);
+* ``REPRO_PERF_OPTS=0`` (``phase_perf_opts``, and a generate of
+  gemma2-9b in ``phase_serve``): each attention route's f32 p.v variant
+  held to the plain version under the setting (f32 at relative L2 1e-4,
+  bf16 by the share of bit-equal outputs), the default variant failing
+  that check, each timed beside the default, its bound, the plain
+  version and SDPA or ``flex_attention`` in f32; the backward's variant
+  at the training shape; and a main-path training step of the training
+  phase's model on ``tc_f32_pv32`` and the backward's variant;
 * gemma2-9b's roofline cells (``phase_roofline``): ``train_4k`` (depth
   2, batch 1), ``prefill_32k`` (all 42 layers, batch 1) and
   ``decode_32k`` (42 layers, batch 4 against a seeded 32768-long cache)
@@ -175,9 +188,10 @@ FLASH_SOURCES = ["src/repro_torch/kernels/csrc/flash.cu",
                  "src/repro_torch/kernels/csrc/flash_mma.cuh"]
 NOTES = {"flash_attention_fused":
          "ports the semantics of the model's attention "
-         "(src/repro/models/layers.py:112 at its default): p and v rounded "
-         "to bf16 for p.v, summed in f32, f32 inputs included; the Pallas "
-         "kernel keeps p.v in f32"}
+         "(src/repro/models/layers.py:112): at its default p and v rounded "
+         "to bf16 for p.v, summed in f32, f32 inputs included; under "
+         "REPRO_PERF_OPTS=0 each route's f32 p.v variant, the Pallas "
+         "kernel's arithmetic (launches_pv32)"}
 
 
 def sass_counts(nvcc: str, lib: Path) -> dict:
@@ -587,22 +601,23 @@ def attn_err(got, want, tol: float, rel_l2: float = ATTN_REL_L2) -> dict:
 
 
 def attention_bound(torch, q_shape, k_shape, itemsize, causal, window,
-                    q_offset, kv_len):
+                    q_offset, kv_len, pv32=False):
     """``(bound_ms, bound_by, pairs, keys)`` of one attention call: the
     FLOPs of the unmasked pairs (two products of hd) at the dense
     tensor-core rate of their operands' type, and the bytes of q, out
     and the keys and values some query sees at the memory rate. bf16
     runs both products at the bf16 rate; f32 runs q.k at the TF32 rate
     and p.v, whose p and v the function rounds to bf16, at the bf16
-    rate."""
+    rate; the f32 p.v variant (``pv32``) runs p.v, an f32 product, at
+    the TF32 rate."""
     b, sq, hq, hd = q_shape
     skv, hkv = k_shape[1], k_shape[2]
     from repro_torch.launch.op_analysis import attention_work
     pairs, keys = attention_work(b, sq, hq, skv, causal, window, q_offset,
                                  kv_len)
     qk_peak = PEAK_FLOPS_BF16 if itemsize == 2 else PEAK_FLOPS_TF32
-    t_ops = (2 * hd * pairs / qk_peak
-             + 2 * hd * pairs / PEAK_FLOPS_BF16) * 1e3
+    pv_peak = PEAK_FLOPS_TF32 if pv32 else PEAK_FLOPS_BF16
+    t_ops = (2 * hd * pairs / qk_peak + 2 * hd * pairs / pv_peak) * 1e3
     t_bytes = (2 * b * sq * hq * hd + 2 * b * keys * hkv * hd) \
         * itemsize / HBM_BW * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
@@ -700,12 +715,17 @@ F32_LIBRARY = ("none (f32: the kernel rounds p and v to bf16 for p.v; SDPA "
 
 
 def _flex_same_fn(torch, q, k, v, causal, window, q_offset, kv_len, cap):
-    """``flex_attention`` on the same bf16 inputs, compiled: the same
-    function as the kernel. A ``score_mod`` applies the softcap to the
-    scaled logit and a block mask the causal, window and kv_len masks;
-    its kernel rounds p to bf16 for p.v and sums l from the unrounded
-    p, as the kernel does. Timed and checked here only; the port never
-    calls it. Returns a function giving ``[B, Sq, Hq, hd]``."""
+    """``flex_attention`` on the same inputs, compiled: the same function
+    as the kernel. A ``score_mod`` applies the softcap to the scaled
+    logit and a block mask the causal, window and kv_len masks; on bf16
+    inputs its kernel rounds p to bf16 for p.v and sums l from the
+    unrounded p, as the kernel does. Each call compiles afresh for
+    static shapes: dynamo would compile a recompile (a new shape or
+    type) for dynamic shapes, whose kernel is slower (on an H100 at the
+    f32 training shape, 187 ms against 39). Timed and checked here only;
+    the port never calls it. Returns a function giving
+    ``[B, Sq, Hq, hd]``."""
+    import torch._dynamo
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                     flex_attention)
     sq, skv, hd = q.shape[1], k.shape[1], q.shape[3]
@@ -725,7 +745,8 @@ def _flex_same_fn(torch, q, k, v, causal, window, q_offset, kv_len, cap):
 
     block_mask = create_block_mask(mask_mod, None, None, sq, skv,
                                    device=q.device)
-    fn = torch.compile(flex_attention)
+    torch._dynamo.reset()
+    fn = torch.compile(flex_attention, dynamic=False)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     return lambda: fn(qt, kt, vt, score_mod=None if cap is None else softcap,
                       block_mask=block_mask, scale=1.0 / math.sqrt(hd),
@@ -738,10 +759,6 @@ def flex_library(torch, q, k, v, kw, want, tol, reps, flush) -> dict:
     is the case's ``library_ms`` only where it passes that check; where
     it does not compile or disagrees the reason is kept and
     ``library_ms`` is null."""
-    import torch._dynamo
-    cfg = torch._dynamo.config   # one compile per case: room for all
-    setattr(cfg, "recompile_limit" if hasattr(cfg, "recompile_limit")
-            else "cache_size_limit", 64)
     try:
         fn = _flex_same_fn(torch, q, k, v, kw["causal"], kw["window"],
                            kw["q_offset"], kw["kv_len"], kw["logit_cap"])
@@ -1599,12 +1616,68 @@ def phase_serve(torch, dev):
           "planted_window_dropped_vs_kernel": planted_vs_kern,
           "ok": True})
     torch.cuda.empty_cache()
+    pv32_run = perf_opts_generate(torch, dev, cfg, params,
+                                  traffic["prompts"], rec_a)
     serve_profiles(torch, layers, cfg, params, traffic, "serve",
                    route_counts(tc_prefill=cfg.n_layers),
                    route_counts(split_decode=gen_len * cfg.n_layers))
     del params, traffic
     torch.cuda.empty_cache()
-    return traffic_counts(rec_a, rec_b)
+    launches, routes = traffic_counts(rec_a, rec_b)
+    return ({k: launches[k] + pv32_run["launches"][k] for k in launches},
+            add_routes(routes, pv32_run["flash_launches_by_route"]),
+            pv32_run["launches_pv32"])
+
+
+def perf_opts_generate(torch, dev, cfg, params, prompts, rec_a) -> dict:
+    """gemma2-9b's generate cell (``GEN``) once more with
+    ``REPRO_PERF_OPTS=0`` (``perf_opts_off``), after a warm-up: launch
+    counts set to 0 just before it and read just after; every prefill
+    layer must run on ``tc_prefill_pv32`` and every decode layer on
+    ``split_decode_pv32``; the tokens must lie in the vocabulary (the
+    default run's first row beside them); and, as the serve checks hold
+    the default, the prefill's logits through the kernel must equal
+    those through the plain attention (under the setting) within
+    ``SERVE_REL_L2``."""
+    from repro_torch.kernels import flash, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    gen_len = GEN[2]
+    with perf_opts_off():
+        serve.generate(params, cfg, prompts, gen_len)            # warm-up
+        out, ms, launches, routes, peak = counted(
+            torch, dev, lambda: serve.generate(params, cfg, prompts,
+                                               gen_len))
+        pv32 = dict(flash.flash_attention_fused.launches_pv32)
+        batch = serve.request_batch(cfg, prompts)
+        kern, _ = T.prefill(params, cfg, batch)
+        with patched_attention(layers, lambda _: ref.flash_attention_ref):
+            plain, _ = T.prefill(params, cfg, batch)
+    kern_vs_plain = logit_stats(torch, kern, plain)
+    del kern, plain
+    rec = {"phase": "perf_opts_serve", "run": "generate",
+           "batch": prompts.shape[0], "prompt_len": prompts.shape[1],
+           "new_tokens": gen_len, "generate_ms": ms, "peak_mem_bytes": peak,
+           "launches": launches, "flash_launches_by_route": routes,
+           "launches_pv32": pv32, "sample": out[0, :8].tolist(),
+           "default_sample": rec_a["sample"],
+           "prefill_kernel_vs_plain": kern_vs_plain,
+           "tol_rel_l2": SERVE_REL_L2}
+    emit(rec)
+    require(tuple(out.shape) == (prompts.shape[0], gen_len + 1)
+            and bool(((out >= 0) & (out < cfg.vocab)).all()),
+            f"pv32 generate: tokens {tuple(out.shape)} out of range")
+    want = route_counts(tc_prefill=cfg.n_layers,
+                        split_decode=gen_len * cfg.n_layers)
+    require(routes == want and pv32 == {
+        "tc_prefill_pv32": want["tc_prefill"],
+        "split_decode_pv32": want["split_decode"], "tc_f32_pv32": 0},
+        f"pv32 generate: routes {routes}, f32 p.v {pv32}, expected {want}")
+    require(kern_vs_plain["rel_l2"] <= SERVE_REL_L2,
+            f"pv32 prefill through the kernel vs plain: {kern_vs_plain}")
+    torch.cuda.empty_cache()
+    return rec
 
 
 # serving of the moe and ssm families (kimi-k2, mamba2-2.7b), and of the
@@ -4064,7 +4137,10 @@ def roofline_attention_checks(torch, dev, cell, calls) -> list:
     of ``FLASH_CASES``. Each call must launch once, on the route
     ``flash._route`` picks and the cell expects (``ROOFLINE_ROUTES``).
     These launches fall after the cell's counts are read and before the
-    next cell's reset: they count in no run of the main path."""
+    next cell's reset: they count in no run of the main path. Beyond the
+    8784 keys of ``FLASH_CASES`` (the prefill and decode cells), compiled
+    ``flex_attention`` computes the same function (``flex_library``, held
+    to the same check) and gives the line its ``library_ms``."""
     from repro_torch.kernels import flash, ops, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
@@ -4086,6 +4162,10 @@ def roofline_attention_checks(torch, dev, cell, calls) -> list:
         check = attn_err(got, want, tol)
         planted = {f: attn_err(fn(), want, tol) for f, fn in
                    planted_faults(ops, q, k, v, got, kw).items()}
+        lib = {"library_ms": None, "library": None}
+        if cell != "train_4k" and kw.get("logit_cap") is not None:
+            lib = flex_library(torch, q, k, v, {"kv_len": None, **kw}, want,
+                               tol, 3, None)
         del got, want
         bound_ms, bound_by, pairs, keys = attention_bound(
             torch, q_shape, k_shape, q.element_size(), kw["causal"],
@@ -4101,7 +4181,7 @@ def roofline_attention_checks(torch, dev, cell, calls) -> list:
                "pairs": pairs, "keys_read": keys,
                "ms": time_ms(torch, lambda: ops.fused_attention(
                    q, k, v, **kw), 3),
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by, **lib}
         emit(rec)
         require(launched == {route: 1} and route in ROOFLINE_ROUTES[cell],
                 f"roofline {cell} attention {q_shape} {k_shape} {kw}: "
@@ -4269,6 +4349,351 @@ def phase_roofline(torch, dev, smi=None):
     return total, total_routes
 
 
+# ---------------------------------------------------------------------------
+# the reference's executable checkers on the card, and REPRO_PERF_OPTS=0
+# through the attention kernels (their f32 p.v variants)
+# ---------------------------------------------------------------------------
+
+IO_KERNELS = ("bitonic_sort", "coalesce", "fused_sort_pack",
+              "zero_skip_encode", "zero_skip_decode", "pack")
+
+
+def phase_checks(torch, dev):
+    """``repro_torch.testing.rounds_checks`` and ``spmd_checks`` in this
+    process on the card (``run(dev)``), and on the CPU for their names:
+    every check must PASS, under the same names as on the CPU, and each
+    I/O kernel must have launched (TAM's sort and coalesce, the fused
+    drain, the zero-skip pair and ``pack``, on patterns none of this
+    script's cells make: nested overlaps, domain spanners, seeded random
+    extents, the swapped placement, 1 to 5 rounds). Launch counts are
+    set to 0 just before the card's runs and read just after. The check
+    lines are kept in memory; failures are printed. Returns the
+    launches and the attention's launches by route (``spmd_checks``' model
+    checks run the attention)."""
+    import io
+    from repro_torch import kernels
+    from repro_torch.kernels import flash
+    from repro_torch.testing import rounds_checks, spmd_checks
+    t0 = time.perf_counter()
+    cpu = {m.__name__: m.run("cpu", out=io.StringIO()).names
+           for m in (rounds_checks, spmd_checks)}
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    card = {m.__name__: m.run(dev, out=io.StringIO())
+            for m in (rounds_checks, spmd_checks)}
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    launches = kernels.launch_counts()
+    routes = dict(flash.flash_attention_fused.launches_by_route)
+    failures = [f for c in card.values() for f in c.failures]
+    emit({"phase": "checks", "device": str(dev),
+          "passed": {m.split(".")[-1]: len(c.names) - len(c.failures)
+                     for m, c in card.items()},
+          "failed": failures[:20],
+          "names_equal_cpu": {m.split(".")[-1]: c.names == cpu[m]
+                              for m, c in card.items()},
+          "launches": launches, "flash_launches_by_route": routes,
+          "card_s": card_s, "cpu_s": cpu_s})
+    require(not failures, f"checks failed on the card: {failures[:20]}")
+    for m, c in card.items():
+        require(c.names == cpu[m] and c.names,
+                f"{m}: the card's check names differ from the CPU's")
+    for name in IO_KERNELS:
+        require(launches[name] > 0, f"checks: {name} never launched")
+    return launches, routes
+
+
+@contextlib.contextmanager
+def perf_opts_off():
+    """``REPRO_PERF_OPTS=0`` inside the block (the model's attention and
+    the kernels take their f32 p.v variant), the old value after it."""
+    old = os.environ.get("REPRO_PERF_OPTS")
+    os.environ["REPRO_PERF_OPTS"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_PERF_OPTS")
+        else:
+            os.environ["REPRO_PERF_OPTS"] = old
+
+
+# the f32 p.v variant: f32 inputs within this relative L2 distance of the
+# plain version under the setting (the default variant's bf16 p and v
+# leave about 2e-3 and must fail it); bf16 inputs within ATTN_TOL and
+# with at least this share of output elements bit-equal to the plain
+# output (which rounds its f32 result to bf16 once), more than the
+# default variant's share, which must miss it
+PV32_REL_L2 = 1e-4
+PV32_BF16_SHARE = 0.95
+# FLASH_CASES that reach each route, in the type their path runs
+PV32_CASES = (("prefill_global", "bfloat16"),
+              ("prefill_global_nocap", "bfloat16"),
+              ("kimi_prefill", "bfloat16"), ("decode", "bfloat16"),
+              ("kimi_decode_b1", "bfloat16"),
+              ("whisper_encoder", "float32"), ("train_global", "float32"))
+PV32_LIBRARY = {"sdpa": "F.scaled_dot_product_attention in f32 (the "
+                        "inputs converted to f32; enable_gqa)",
+                "flex": FLEX + ", in f32 (the inputs converted to f32)"}
+
+
+def bit_share(torch, got, want) -> float:
+    """The share of elements whose bits equal ``want``'s."""
+    return float((bits(torch, got) == bits(torch, want)).float().mean())
+
+
+def sdpa_f32_library(torch, q, k, v, kw, want, reps, flush) -> dict:
+    """SDPA in f32 (no softcap): the same function as the f32 p.v
+    variant. Held to the plain version at the f32 limit and timed."""
+    fn = _sdpa_no_softcap(torch, q, k, v, kw["causal"], kw["window"],
+                          kw["q_offset"], kw["kv_len"])
+    check = attn_err(fn().transpose(1, 2), want, ATTN_TOL["float32"])
+    ms = time_ms(torch, fn, reps, flush)
+    if check["within"]:
+        return {"library_ms": ms, "library": PV32_LIBRARY["sdpa"]}
+    return {"library_ms": None, "library": PV32_LIBRARY["sdpa"]
+            + f": outside the f32 limits ({check})"}
+
+
+def pv32_case(torch, dev, gen, name, dname, reps, flush) -> dict:
+    """One ``PV32_CASES`` case with the setting off: the call through
+    ``ops.fused_attention`` (which takes the variant from the setting)
+    against ``flash_attention_ref`` (which follows it), the default
+    variant on the same inputs as a planted fault, and the times of
+    both, of the plain version and of the library's f32 call."""
+    from repro_torch.kernels import flash, ops, ref
+    _, b, sq, skv, causal, window, q_offset, kv_len, cap = next(
+        c for c in FLASH_CASES if c[0] == name)
+    hq, hkv, hd = FLASH_HEADS.get(name, (16, 8, 256))
+    dtype = getattr(torch, dname)
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+               for s in ((b, sq, hq, hd), (b, skv, hkv, hd),
+                         (b, skv, hkv, hd)))
+    kw = dict(causal=causal, window=window, logit_cap=cap,
+              q_offset=q_offset, kv_len=kv_len)
+    route = flash._route(b, sq, hq, hkv, hd, dtype) + "_pv32"
+    counts = dict(flash.flash_attention_fused.launches_pv32)
+    got = ops.fused_attention(q, k, v, **kw)
+    counts[route] += 1
+    require(flash.flash_attention_fused.launches_pv32 == counts,
+            f"pv32 {name} {dname}: launched "
+            f"{flash.flash_attention_fused.launches_pv32}, not one {route}")
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    default = flash.flash_attention_ragged(q, k, v, pv32=False, **kw)
+    check = attn_err(got, want, ATTN_TOL[dname])
+    planted = attn_err(default, want, ATTN_TOL[dname])
+    rec = {"case": name, "dtype": dname, "route": route, "q": list(q.shape),
+           "kv": list(k.shape), "causal": causal, "window": window,
+           "logit_cap": cap, "max_abs_err": check["max_abs_err"],
+           "rel_l2": check["rel_l2"], "default_rel_l2": planted["rel_l2"],
+           "default_max_abs_err": planted["max_abs_err"]}
+    if dtype == torch.float32:
+        ok = check["within"] and check["rel_l2"] <= PV32_REL_L2
+        fault_passes = planted["rel_l2"] <= PV32_REL_L2
+        rec["tol_rel_l2"] = PV32_REL_L2
+    else:
+        share, share_default = bit_share(torch, got, want), \
+            bit_share(torch, default, want)
+        ok = check["within"] and share >= PV32_BF16_SHARE \
+            and share > share_default
+        fault_passes = share_default >= PV32_BF16_SHARE
+        rec.update(bit_equal_share=share, default_bit_equal_share=share_default,
+                   tol_share=PV32_BF16_SHARE)
+    del got, default, want
+    bound_ms, bound_by, pairs, _ = attention_bound(
+        torch, q.shape, k.shape, q.element_size(), causal, window, q_offset,
+        kv_len, pv32=True)
+    rec.update(
+        ms=time_ms(torch, lambda: ops.fused_attention(q, k, v, **kw), reps,
+                   flush),
+        default_ms=time_ms(torch, lambda: flash.flash_attention_ragged(
+            q, k, v, pv32=False, **kw), reps, flush),
+        plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw),
+                         max(2, reps // 4), flush),
+        bound_ms=bound_ms, bound_by=bound_by, pairs=pairs)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    want32 = ref.flash_attention_ref(qf, kf, vf, **kw)
+    if cap is None:
+        rec.update(sdpa_f32_library(torch, qf, kf, vf, kw, want32, reps,
+                                    flush))
+    else:
+        lib = flex_library(torch, qf, kf, vf, kw, want32, ATTN_TOL["float32"],
+                           reps, flush)
+        rec.update(lib, library=lib["library"].replace(
+            FLEX, PV32_LIBRARY["flex"]))
+    del q, k, v, qf, kf, vf, want32
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel", "kernel": "flash_attention_fused",
+          "variant": "pv32", **rec})
+    require(ok, f"pv32 {name} {dname}: {rec}")
+    require(not fault_passes, f"pv32 {name} {dname}: the default variant "
+            f"passes the f32 p.v check: {rec}")
+    return rec
+
+
+PV32_BWD_LIBRARY = ("the backward of " + FLEX + ", in f32, by "
+                    "torch.autograd.grad of a forward taken before the "
+                    "timer")
+
+
+def flex_bwd_library(torch, q, k, v, dout, kw, want, reps, flush) -> dict:
+    """``library_ms`` of the backward's f32 p.v variant: the backward of
+    compiled ``flex_attention`` on the same f32 inputs (the softcap as
+    its ``score_mod``, the masks as its block mask), the same function:
+    its gradients held to ``want`` (``flash_attention_bwd_ref`` with an
+    f32 p.v) at ``BWD_TOL``, then ``torch.autograd.grad`` of a forward
+    taken before the timer is timed (compiled without donated buffers,
+    which a backward run again on the kept graph needs). Where it does
+    not compile or disagrees the reason is kept and ``library_ms`` is
+    null."""
+    import torch._functorch.config
+    try:
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        fn = _flex_same_fn(torch, *leaves, kw["causal"], kw["window"],
+                           kw["q_offset"], kw["kv_len"], kw["logit_cap"])
+
+        def grads():
+            return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+        with torch._functorch.config.patch(donated_buffer=False):
+            with torch.enable_grad():
+                out = fn()
+            check = grads_err(grads(), want, "float32")
+            ms = time_ms(torch, grads, reps, flush)
+    except Exception as exc:   # a measurement of the library, not the port
+        return {"library_ms": None,
+                "library": f"{PV32_BWD_LIBRARY}: failed: "
+                           f"{type(exc).__name__}: {str(exc)[:300]}"}
+    rec = {"flex_ms": ms, "flex_max_abs_err": check["max_abs_err"],
+           "flex_rel_l2": {n: c["rel_l2"]
+                           for n, c in check["per_grad"].items()}}
+    if check["within"]:
+        return {**rec, "library_ms": ms, "library": PV32_BWD_LIBRARY}
+    return {**rec, "library_ms": None,
+            "library": f"{PV32_BWD_LIBRARY}: outside BWD_TOL"}
+
+
+def pv32_backward(torch, dev, reps, flush) -> dict:
+    """The backward's f32 p.v variant at ``train_global`` in f32 (the
+    training path's global layer, q and k of std 2) against
+    ``flash_attention_bwd_ref`` with the setting off, under ``BWD_TOL``;
+    the default variant's gradient (a planted fault) must fail it. Its
+    library time is ``flex_attention``'s backward (``flex_bwd_library``)."""
+    from repro_torch.kernels import flash, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    b, s, hq, hkv, hd = TRAIN_BATCH, TRAIN_SEQ, 16, 8, 256
+    q, k = ((2 * torch.randn(sh, generator=gen, device=dev))
+            for sh in ((b, s, hq, hd), (b, s, hkv, hd)))
+    v = torch.randn((b, s, hkv, hd), generator=gen, device=dev)
+    dout = torch.randn((b, s, hq, hd), generator=gen, device=dev)
+    kw = dict(causal=True, window=None, logit_cap=50.0, q_offset=0,
+              kv_len=None)
+    out = ref.flash_attention_ref(q, k, v, **kw)
+    before = flash.flash_attention_bwd.launches_pv32["bwd_pv32"]
+    got = flash.flash_attention_bwd(q, k, v, out, dout, pv32=True, **kw)
+    require(flash.flash_attention_bwd.launches_pv32["bwd_pv32"]
+            == before + 1, "pv32 bwd: not launched once")
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    check = grads_err(got, want, "float32")
+    planted = grads_err(flash.flash_attention_bwd(
+        q, k, v, out, dout, pv32=False, **kw), want, "float32")
+    library = flex_bwd_library(torch, q, k, v, dout, kw, want, reps, flush)
+    del got, want
+    bound_ms, bound_by, pairs, _ = bwd_bound(torch, q.shape, k.shape, 4,
+                                             True, None)
+    rec = {"case": "train_global", "dtype": "float32", "variant": "pv32",
+           "q": list(q.shape), "kv": list(k.shape),
+           "max_abs_err": check["max_abs_err"], "grads": check["per_grad"],
+           "tol": BWD_TOL["float32"],
+           "default_rel_l2": {n: c["rel_l2"]
+                              for n, c in planted["per_grad"].items()},
+           "ms": time_ms(torch, lambda: flash.flash_attention_bwd(
+               q, k, v, out, dout, pv32=True, **kw), reps, flush),
+           "default_ms": time_ms(torch, lambda: flash.flash_attention_bwd(
+               q, k, v, out, dout, pv32=False, **kw), reps, flush),
+           "plain_ms": time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+               q, k, v, out, dout, **kw), 2, flush),
+           "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs}
+    rec.update(library)
+    emit({"phase": "kernel", "kernel": "flash_attention_bwd", **rec})
+    require(check["within"], f"pv32 bwd: {check}")
+    require(not planted["within"], "pv32 bwd: the default variant passes")
+    del q, k, v, out, dout
+    torch.cuda.empty_cache()
+    return rec
+
+
+def pv32_train_step(torch, dev, tmp) -> tuple:
+    """A training step of the training phase's model (gemma2-9b at full
+    width cut to ``TRAIN_LAYERS`` layers, f32, batch ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ``) through ``launch.train.build_training``'s step with
+    the setting off, after a warm-up step: launch counts set to 0 just
+    before it and read just after; the attention's forward must run on
+    ``tc_f32_pv32`` and its backward on ``bwd_pv32``, and the loss must
+    equal the same model's loss with attention forced through the plain
+    version (under the setting) within ``TRAIN_LOSS_REL``. Returns the
+    record, its launches, its flash routes and its f32 p.v counts."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels import flash, ref
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(configs.get("gemma2_9b"), n_layers=TRAIN_LAYERS)
+    run = build_training("gemma2_9b", cfg=cfg, steps=2, batch=TRAIN_BATCH,
+                         seq=TRAIN_SEQ, lr=3e-3, ckpt_dir=tmp, device=dev)
+    batch = run.data.batch_at(0)
+    run.train_step(run.params, run.opt_state, batch)          # warm-up
+    (_, _, loss), ms, launches, routes, peak = counted(
+        torch, dev, lambda: run.train_step(run.params, run.opt_state, batch))
+    pv32 = {**flash.flash_attention_fused.launches_pv32,
+            **flash.flash_attention_bwd.launches_pv32}
+    with torch.no_grad(), patched_attention(
+            layers, lambda _: ref.flash_attention_ref):
+        plain = T.loss_fn(run.params, cfg, batch)
+    loss, plain = float(loss), float(plain)
+    rec = {"phase": "perf_opts_train_step", "layers": TRAIN_LAYERS,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "loss": loss,
+           "loss_plain_attention": plain,
+           "rel_diff": abs(loss - plain) / abs(plain), "ms": ms,
+           "peak_mem_bytes": peak, "launches_pv32": pv32,
+           "flash_launches_by_route": routes}
+    emit(rec)
+    require(math.isfinite(loss) and rec["rel_diff"] <= TRAIN_LOSS_REL,
+            f"pv32 train step: {rec}")
+    n = TRAIN_LAYERS   # one forward and one backward launch a layer
+    require(pv32["tc_f32_pv32"] == routes["tc_f32"] == n
+            and pv32["bwd_pv32"] == launches["flash_attention_bwd"] == n,
+            f"pv32 train step: launches {pv32}, routes {routes}")
+    del run, batch
+    torch.cuda.empty_cache()
+    return rec, launches, routes, pv32
+
+
+def phase_perf_opts(torch, dev, reps, tmp):
+    """``REPRO_PERF_OPTS=0``, set and restored inside the phase: every
+    ``PV32_CASES`` case (``pv32_case``), the backward at the training
+    shape (``pv32_backward``) and a main-path training step
+    (``pv32_train_step``). Returns the cases, the backward's line, and
+    the training step's launches, flash routes and f32 p.v counts (the
+    serve phase's f32 p.v generate is in ``phase_serve``)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    flush = torch.empty(1 << 25, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    with perf_opts_off():
+        cases = [pv32_case(torch, dev, gen, name, dname, reps, flush)
+                 for name, dname in PV32_CASES]
+        bwd = pv32_backward(torch, dev, reps, flush)
+        del flush
+        _, launches, routes, pv32 = pv32_train_step(torch, dev, tmp)
+    emit({"phase": "perf_opts", "seconds": time.perf_counter() - t0,
+          "cases": len(cases), "restored": os.environ.get("REPRO_PERF_OPTS")})
+    return cases, bwd, launches, routes, pv32
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # torch.compile (flex_attention's library time) keeps its caches in
@@ -4315,7 +4740,8 @@ def main() -> int:
     patterns = phase_patterns(torch, dev)
     hosted, pack_rec = phase_host(torch, dev, REPS)
     phase_mp(torch, dev)
-    served, served_routes = phase_serve(torch, dev)
+    checked, checked_routes = phase_checks(torch, dev)
+    served, served_routes, served_pv32 = phase_serve(torch, dev)
     moe, moe_routes = phase_serve_moe(torch, dev)
     phase_collectives(torch, dev)
     piped, piped_routes = phase_pipeline(torch, dev)
@@ -4325,6 +4751,8 @@ def main() -> int:
     measured["flash_attention_bwd"] = phase_train_kernel(torch, dev, REPS)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
+        pv32_cases, pv32_bwd, pv32_launches, pv32_routes, pv32_counts = \
+            phase_perf_opts(torch, dev, REPS, os.path.join(tmp, "pv32"))
         trained, trained_routes, train_pack, ckpt = phase_train(torch, dev,
                                                                 tmp)
         restored, restored_routes = phase_serve_restore(torch, dev, ckpt)
@@ -4333,13 +4761,22 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     roofed, roofed_routes = phase_roofline(torch, dev, smi)
-    runs = (served, moe, piped, ssm, vlm, audio, trained, restored, roofed)
+    runs = (served, moe, piped, ssm, vlm, audio, trained, restored, roofed,
+            checked, pv32_launches)
     launches = {k: launches[k] + patterns[k] + hosted[k]
                 + sum(r[k] for r in runs) for k in launches}
     routes = {r: sum(rr[r] for rr in (
         served_routes, moe_routes, piped_routes, ssm_routes, vlm_routes,
-        audio_routes, trained_routes, restored_routes, roofed_routes))
+        audio_routes, trained_routes, restored_routes, roofed_routes,
+        pv32_routes, checked_routes))
         for r in served_routes}
+    # the f32 p.v variants' launches on the main paths (REPRO_PERF_OPTS=0:
+    # the serve phase's generate and perf_opts' training step)
+    launches_pv32 = {**{r: served_pv32[r] + pv32_counts[r]
+                        for r in served_pv32},
+                     "bwd_pv32": pv32_counts["bwd_pv32"]}
+    for variant, n in launches_pv32.items():
+        require(n > 0, f"{variant}: the f32 p.v variant never launched")
     require(sum(routes.values()) == launches["flash_attention_fused"],
             f"flash routes {routes} vs {launches['flash_attention_fused']}")
     # pack's line: its largest shape, a window of a training save's
@@ -4358,7 +4795,13 @@ def main() -> int:
         "kimi_cases": flash_rec["kimi_cases"],
         "vlm_audio_cases": flash_rec["vlm_audio_cases"],
         "f32_cases": flash_rec["f32_cases"],
-        "launches_by_route": routes},
+        "launches_by_route": routes,
+        "launches_pv32": {r: launches_pv32[r] for r in served_pv32},
+        "pv32_cases": [{k: c.get(k) for k in (
+            "case", "dtype", "route", "ms", "default_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library", "max_abs_err",
+            "rel_l2", "bit_equal_share", "default_bit_equal_share")}
+            for c in pv32_cases]},
         "pack": {"path": "a training save's domain image (phase_train)",
                  "shape": train_pack["shape"],
                  "out_len": train_pack["out_len"],
@@ -4378,7 +4821,11 @@ def main() -> int:
         "achieved_tflops": bwd_rec["achieved_tflops"],
         "issued_tflops": bwd_rec["issued_tflops"],
         "f32_cores_bound_ms": bwd_rec["f32_cores_bound_ms"],
-        "library": bwd_rec["library"]}
+        "library": bwd_rec["library"],
+        "launches_pv32": {"bwd_pv32": launches_pv32["bwd_pv32"]},
+        "pv32_case": {k: pv32_bwd[k] for k in (
+            "case", "ms", "default_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library", "max_abs_err")}}
 
     emit({"phase": "kernel_status",
           "table": [{"name": n, "replaces": r, "status": s,

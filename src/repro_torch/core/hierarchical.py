@@ -73,6 +73,14 @@ def _int8_decode(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return codec_mod.int8_decode(q, scale)
 
 
+class ErrorFeedbackState:
+    """Per-leaf residual for error-feedback compression (EF-SGD style)."""
+
+    @staticmethod
+    def init(x: torch.Tensor) -> torch.Tensor:
+        return torch.zeros_like(x)
+
+
 def compressed_psum(x: torch.Tensor, residual: torch.Tensor, ranks: Ranks,
                     fast_axis: str, slow_axis: str):
     """Two-layer psum with error-feedback int8 on the slow hop only.

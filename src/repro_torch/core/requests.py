@@ -71,6 +71,23 @@ def make_requests(offsets, lengths, capacity: int | None = None, *,
                                              device=device))
 
 
+def empty_requests(capacity: int, *, device=None) -> RequestList:
+    """A list of ``capacity`` padding slots and no request, on ``device``
+    (the card unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    return RequestList(
+        torch.full((capacity,), PAD_OFFSET, dtype=torch.int32, device=device),
+        torch.zeros((capacity,), dtype=torch.int32, device=device),
+        torch.tensor(0, dtype=torch.int32, device=device))
+
+
+def is_sorted(r: RequestList) -> torch.Tensor:
+    """True if the valid entries are in nondecreasing offset order (a
+    bool tensor; one a row of a batched list)."""
+    off = torch.where(r.valid_mask(), r.offsets, PAD_OFFSET)
+    return (off[..., :-1] <= off[..., 1:]).all(dim=-1)
+
+
 def mask_invalid(r: RequestList) -> RequestList:
     """Force padding convention on all slots >= count."""
     m = r.valid_mask()
@@ -110,6 +127,13 @@ def split_at_stripes(r: RequestList, stripe_size: int,
     return RequestList(off_flat.gather(-1, order),
                        len_flat.gather(-1, order),
                        valid.sum(dim=(-2, -1), dtype=torch.int32))
+
+
+def to_numpy(r: RequestList) -> tuple[np.ndarray, np.ndarray]:
+    """The valid ``(offsets, lengths)`` of a 1-D list as host numpy
+    arrays."""
+    n = int(r.count)
+    return r.offsets[:n].cpu().numpy(), r.lengths[:n].cpu().numpy()
 
 
 def requests_from_numpy(O, L, C, D, device=None):

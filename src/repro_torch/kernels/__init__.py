@@ -23,7 +23,9 @@
 
 Each wrapper counts the calls that launched its kernel in a plain
 integer attribute, ``<wrapper>.launches``; the attention also counts
-them by route, in ``flash_attention_fused.launches_by_route``.
+them by route, in ``flash_attention_fused.launches_by_route``, and the
+attention and its backward count their f32 p.v variant's launches
+(``REPRO_PERF_OPTS=0``) in ``.launches_pv32``.
 """
 from __future__ import annotations
 
@@ -49,5 +51,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-        for route in getattr(k, "launches_by_route", ()):
-            k.launches_by_route[route] = 0
+        for counts in (getattr(k, "launches_by_route", {}),
+                       getattr(k, "launches_pv32", {})):
+            for key in counts:
+                counts[key] = 0

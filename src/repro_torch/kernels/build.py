@@ -46,10 +46,10 @@ _SIGNATURES = {
     "repro_zero_skip_decode": (_P, _P, _P, _I, _I, _I, _P),
     "repro_pack": (_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _F, _I, _I, _F, _I, _I, _I, _I, _P),
+                              _F, _I, _I, _F, _I, _I, _I, _I, _I, _P),
     "repro_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I,
-                                  _I, _I, _I, _P),
+                                  _I, _I, _I, _I, _P),
 }
 
 

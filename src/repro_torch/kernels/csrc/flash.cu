@@ -13,6 +13,15 @@
 // flash_attention at its default) does; the Pallas kernel keeps them in
 // f32. The row sums l take the unrounded probabilities, as there.
 //
+// The f32 p.v variant (Params::pv32; the model under REPRO_PERF_OPTS=0
+// and the Pallas kernel): every route has it, instantiated apart (the
+// template flag PV32), so the default's code is what it was. bf16
+// routes: v is exact in bf16, so p alone is split, hi = bf16(p) and
+// lo = bf16(p - hi), two products into one f32 accumulator (about
+// 2^-17 relative on p, against the bf16 output's 2^-9). tc_f32: p and v
+// both split into TF32 halves, three mma.sync.m16n8k8 products, as its
+// q . k (below).
+//
 // Rows. Every route flattens (query, head) pairs of one (batch, kv head)
 // into rows r = s * g + h, so the g heads that share a kv head share
 // every K/V tile, whatever g is (1, 2, 7, 16). q_offset and kv_len are
@@ -229,7 +238,11 @@ __device__ __forceinline__ void pair_sync(int rg) {
 }
 
 // VEC: rows_aligned16_f32 (tiles load by cp.async), else element-wise.
-template <int HDP, bool VEC>
+// PV32: the f32 p.v variant. P goes through shared memory as f32 (in
+// the space of the bf16 V and P tiles, which it does not use: 8 KB in
+// the at<kKeys> layout), and o += P . V is the split TF32 product of P
+// and the f32 V stage, as S = Q . K^T is.
+template <int HDP, bool VEC, bool PV32>
 __global__ void __launch_bounds__(F32Tile<HDP>::kThreads,
                                   F32Tile<HDP>::kMinBlocks)
     flash_tc_f32_kernel(const repro_flash::Params p) {
@@ -242,6 +255,11 @@ __global__ void __launch_bounds__(F32Tile<HDP>::kThreads,
   float* vbuf = kbuf + 2 * C::kKFloats;       // 2 x [kKeys][HDP], f32
   const uint32_t v_tile = smem_u32(vbuf + 2 * C::kKFloats);   // bf16
   const uint32_t p_tile = v_tile + C::kVBytes;   // bf16 [kRows][kPLd]
+  // PV32: f32 P [kRows][kKeys], at<kKeys>, where the bf16 tiles were
+  float* p_f32 = vbuf + 2 * C::kKFloats;
+  static_assert(C::kRows * C::kKeys * sizeof(float) <=
+                    C::kVBytes + C::kPBytes,
+                "the f32 P tile fits the bf16 V and P tiles' space");
   const auto* q = static_cast<const float*>(p.q);
   const auto* k = static_cast<const float*>(p.k);
   const auto* v = static_cast<const float*>(p.v);
@@ -337,13 +355,17 @@ __global__ void __launch_bounds__(F32Tile<HDP>::kThreads,
     cp_async_commit();
     // V rounded to bf16 into the swizzled tile ldmatrix reads
     const float* vs = vbuf + st * C::kKFloats;
+    if constexpr (!PV32) {
 #pragma unroll
-    for (int idx = tid; idx < C::kKeys * HDP / 4; idx += C::kThreads) {
-      const int r = idx / (HDP / 4), c = (idx % (HDP / 4)) * 4;
-      const float4 x = *reinterpret_cast<const float4*>(vs + at<HDP>(r, c));
-      asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(
-                       v_tile + tile_off<C::kKeys>(r, c >> 3) + (c & 7) * 2),
-                   "r"(pack_bf16(x.x, x.y)), "r"(pack_bf16(x.z, x.w)));
+      for (int idx = tid; idx < C::kKeys * HDP / 4; idx += C::kThreads) {
+        const int r = idx / (HDP / 4), c = (idx % (HDP / 4)) * 4;
+        const float4 x =
+            *reinterpret_cast<const float4*>(vs + at<HDP>(r, c));
+        asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(
+                         v_tile + tile_off<C::kKeys>(r, c >> 3) +
+                         (c & 7) * 2),
+                     "r"(pack_bf16(x.x, x.y)), "r"(pack_bf16(x.z, x.w)));
+      }
     }
     const int key0 = t * C::kKeys, key_last = key0 + C::kKeys - 1;
     const bool seen = w_live &&
@@ -407,29 +429,57 @@ __global__ void __launch_bounds__(F32Tile<HDP>::kThreads,
         tile_max[i] = fmaxf(pair_red[0][m0 + (lane >> 2) + 8 * i],
                             pair_red[1][m0 + (lane >> 2) + 8 * i]);
       f32_softmax<C::kWarpKeys, C::kCols>(s, o, m, l, tile_max);
-      // this warp's probabilities, rounded to bf16, for both warps
+      // this warp's probabilities, rounded to bf16 (PV32: f32), for
+      // both warps
 #pragma unroll
       for (int j = 0; j < C::kWarpKeys / 8; ++j)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int r = m0 + (lane >> 2) + 8 * i;
           const int c = n0 + 8 * j + (lane & 3) * 2;
-          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
-                           p_tile + (r * C::kPLd + c) * 2),
-                       "r"(pack_bf16(s[j][2 * i], s[j][2 * i + 1])));
+          if constexpr (PV32) {
+            // c is even: c and c + 1 stay neighbours under at's swizzle
+            *reinterpret_cast<float2*>(p_f32 + at<C::kKeys>(r, c)) =
+                make_float2(s[j][2 * i], s[j][2 * i + 1]);
+          } else {
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                             p_tile + (r * C::kPLd + c) * 2),
+                         "r"(pack_bf16(s[j][2 * i], s[j][2 * i + 1])));
+          }
         }
       pair_sync(rg);
     }
     __syncthreads();   // the bf16 V tile is written
     if (seen) {
-      // o += P . V: P (16 rows x 32 keys) from shared memory by ldmatrix
+      if constexpr (PV32) {
+        // o += P . V in split TF32: P (16 rows x 32 keys) and the f32 V
+        // stage, each k-step's fragments split into hi and lo
 #pragma unroll
-      for (int ks = 0; ks < C::kKeys / 16; ++ks) {
-        uint32_t a[4];
-        ldsm_x4(p_tile + ((m0 + (lane & 15)) * C::kPLd + ks * 16 +
-                          (lane >> 4) * 8) * 2,
-                a[0], a[1], a[2], a[3]);
-        pv_k16<C::kKeys, C::kCols>(o, a, v_tile, ks, col0, lane);
+        for (int k0 = 0; k0 < C::kKeys; k0 += 8) {
+          float x[4];
+          a_rows<C::kKeys>(p_f32, m0, k0, x);
+          Frag<4, true> pa;
+          pa.set(x);
+#pragma unroll
+          for (int n = 0; n < C::kCols / 8; ++n) {
+            float y[2];
+            b_cols<HDP>(vs, col0 + 8 * n, k0, y);
+            Frag<2, true> vb;
+            vb.set(y);
+            mma_split(o[n], pa, vb);
+          }
+        }
+      } else {
+        // o += P . V: P (16 rows x 32 keys) from shared memory by
+        // ldmatrix
+#pragma unroll
+        for (int ks = 0; ks < C::kKeys / 16; ++ks) {
+          uint32_t a[4];
+          ldsm_x4(p_tile + ((m0 + (lane & 15)) * C::kPLd + ks * 16 +
+                            (lane >> 4) * 8) * 2,
+                  a[0], a[1], a[2], a[3]);
+          pv_k16<C::kKeys, C::kCols>(o, a, v_tile, ks, col0, lane);
+        }
       }
     }
   }
@@ -469,10 +519,10 @@ __global__ void __launch_bounds__(F32Tile<HDP>::kThreads,
   }
 }
 
-template <int HDP, bool VEC>
+template <int HDP, bool VEC, bool PV32>
 cudaError_t launch_f32(const repro_flash::Params& p, cudaStream_t stream) {
   using C = F32Tile<HDP>;
-  auto* kernel = flash_tc_f32_kernel<HDP, VEC>;
+  auto* kernel = flash_tc_f32_kernel<HDP, VEC, PV32>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmem));
@@ -485,19 +535,26 @@ cudaError_t launch_f32(const repro_flash::Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool VEC>
+template <bool VEC, bool PV32>
 cudaError_t launch_f32_hd(const repro_flash::Params& p, cudaStream_t stream) {
   // the tile layout (at<W>) needs rows of a multiple of 32 words
-  if (p.hd <= 32) return launch_f32<32, VEC>(p, stream);
-  if (p.hd <= 64) return launch_f32<64, VEC>(p, stream);
-  if (p.hd <= 128) return launch_f32<128, VEC>(p, stream);
-  return launch_f32<256, VEC>(p, stream);
+  if (p.hd <= 32) return launch_f32<32, VEC, PV32>(p, stream);
+  if (p.hd <= 64) return launch_f32<64, VEC, PV32>(p, stream);
+  if (p.hd <= 128) return launch_f32<128, VEC, PV32>(p, stream);
+  return launch_f32<256, VEC, PV32>(p, stream);
+}
+
+template <bool PV32>
+cudaError_t launch_f32_variant(const repro_flash::Params& p,
+                               cudaStream_t stream) {
+  return rows_aligned16_f32(p) ? launch_f32_hd<true, PV32>(p, stream)
+                               : launch_f32_hd<false, PV32>(p, stream);
 }
 
 cudaError_t launch_tc_f32(const repro_flash::Params& p, cudaStream_t stream) {
   if (p.hd < 1 || p.hd > 256) return cudaErrorInvalidValue;
-  return rows_aligned16_f32(p) ? launch_f32_hd<true>(p, stream)
-                               : launch_f32_hd<false>(p, stream);
+  return p.pv32 ? launch_f32_variant<true>(p, stream)
+                : launch_f32_variant<false>(p, stream);
 }
 
 
@@ -516,7 +573,9 @@ struct TcTile {
 };
 
 // VEC: rows_aligned16 (the tiles load by cp.async), else element-wise.
-template <int HDP, bool VEC>
+// PV32: the f32 p.v variant (a second wgmma of bf16(p - bf16(p)) a
+// 16-key step).
+template <int HDP, bool VEC, bool PV32>
 __global__ void __launch_bounds__(TcTile<HDP>::kThreads, 1)
     flash_tc_prefill_kernel(const repro_flash::Params p) {
   using C = TcTile<HDP>;
@@ -639,6 +698,12 @@ __global__ void __launch_bounds__(TcTile<HDP>::kThreads, 1)
         p_operand<C::kKeys>(a, s, ks);
         wgmma_rs<HDP>(o, a, gmma_desc(v_tile + ks * 16 * 128, kPanelKV,
                                       1024));
+        if constexpr (PV32) {
+          uint32_t a_lo[4];
+          p_operand_lo<C::kKeys>(a_lo, s, ks);
+          wgmma_rs<HDP>(o, a_lo, gmma_desc(v_tile + ks * 16 * 128,
+                                           kPanelKV, 1024));
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -673,10 +738,10 @@ __global__ void __launch_bounds__(TcTile<HDP>::kThreads, 1)
   }
 }
 
-template <int HDP, bool VEC>
+template <int HDP, bool VEC, bool PV32>
 cudaError_t launch_tc(const repro_flash::Params& p, cudaStream_t stream) {
   using C = TcTile<HDP>;
-  auto* kernel = flash_tc_prefill_kernel<HDP, VEC>;
+  auto* kernel = flash_tc_prefill_kernel<HDP, VEC, PV32>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmem));
@@ -689,18 +754,25 @@ cudaError_t launch_tc(const repro_flash::Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool VEC>
+template <bool VEC, bool PV32>
 cudaError_t launch_tc_hd(const repro_flash::Params& p, cudaStream_t stream) {
-  if (p.hd <= 64) return launch_tc<64, VEC>(p, stream);
-  if (p.hd <= 128) return launch_tc<128, VEC>(p, stream);
-  return launch_tc<256, VEC>(p, stream);
+  if (p.hd <= 64) return launch_tc<64, VEC, PV32>(p, stream);
+  if (p.hd <= 128) return launch_tc<128, VEC, PV32>(p, stream);
+  return launch_tc<256, VEC, PV32>(p, stream);
+}
+
+template <bool PV32>
+cudaError_t launch_tc_variant(const repro_flash::Params& p,
+                              cudaStream_t stream) {
+  return repro_flash::rows_aligned16(p) ? launch_tc_hd<true, PV32>(p, stream)
+                                        : launch_tc_hd<false, PV32>(p, stream);
 }
 
 cudaError_t launch_tc_prefill(const repro_flash::Params& p,
                               cudaStream_t stream) {
   if (p.hd < 1 || p.hd > 256) return cudaErrorInvalidValue;
-  return repro_flash::rows_aligned16(p) ? launch_tc_hd<true>(p, stream)
-                                        : launch_tc_hd<false>(p, stream);
+  return p.pv32 ? launch_tc_variant<true>(p, stream)
+                : launch_tc_variant<false>(p, stream);
 }
 
 }  // namespace
@@ -718,22 +790,23 @@ cudaError_t launch_split_decode(const Params& p, cudaStream_t stream);
 // that do not all start on 16 bytes load element by element. scale: the
 // logit scale (1 / sqrt(hd), rounded once from double as the reference
 // does); causal: 0/1; window <= 0: none; cap <= 0: no softcap; kv_len:
-// keys at positions >= kv_len are masked. Returns a CUDA error code; an
-// unknown route or a shape it does not take is cudaErrorInvalidValue.
+// keys at positions >= kv_len are masked; pv32: 1 for the route's f32
+// p.v variant. Returns a CUDA error code; an unknown route or a shape it
+// does not take is cudaErrorInvalidValue.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, void* scratch,
                                      int b, int sq, int skv, int hq, int hkv,
                                      int hd, float scale, int causal,
                                      int window, float cap, int q_offset,
                                      int kv_len, int route, int n_chunks,
-                                     void* stream) {
+                                     int pv32, void* stream) {
   if (b == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const repro_flash::Params p{q,     k,      v,        out,
                               static_cast<float*>(scratch),
                               b,     sq,     skv,      hq,     hkv,  hd,
                               scale, cap,    causal,   window, q_offset,
-                              kv_len, n_chunks};
+                              kv_len, n_chunks, pv32 != 0};
   cudaError_t err = cudaErrorInvalidValue;
   switch (route) {
     case 0:

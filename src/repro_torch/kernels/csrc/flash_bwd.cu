@@ -24,6 +24,15 @@
 // either. The plain version's rows of more than 4096 keys take their
 // max a chunk at a time, so there dm splits over the chunks' maxima.
 //
+// The f32 p.v variant (PV32: the gradient of the forward's variant, the
+// model's attention under REPRO_PERF_OPTS=0) rounds nothing to bf16:
+// out = sum p~ v / l, so dP = dO' . v, dv = sum_rows p~ dO', and dm is
+// zero but for rounding (no bf16(dP) makes it otherwise). dP's v is
+// split like dO' for f32 inputs (exact for bf16), dv's p~ is split for
+// bf16 inputs (f32 inputs keep the FMA chain, of the unrounded p~), and
+// V is not rounded in shared memory. The dq and dk/dv kernels are
+// instantiated apart for it; the stats pass is the same.
+//
 // What bounds it. Five products of hd a visible pair (S, dP, dv, dk, dq)
 // make it bound by operations on this card (0.69 ms at TF32's 495
 // TFLOP/s at the training shape, 5.1 ms at the f32 cores' 67). The f32
@@ -650,6 +659,8 @@ __device__ __forceinline__ Rows load_row_stats(const BwdParams& p, int bb,
 // key `key`) from its logit s and dP dp:
 //   ds = (p~ (bf16(dp) - D) + [key == argmax] dm) (1 - tanh^2);
 // p~ to `pt`, p~ (bf16(dp) - D) added to `dmsum`.
+// PV32: dp as it is (the variant rounds nothing).
+template <bool PV32>
 __device__ __forceinline__ float grad_elem(const BwdParams& p, const Rows& rw,
                                            int i, int key, float s, float dp,
                                            float& pt, float& dmsum) {
@@ -658,7 +669,7 @@ __device__ __forceinline__ float grad_elem(const BwdParams& p, const Rows& rw,
   float x, dcap;
   const bool ok = logit(p, s, rw.q_pos[i], key, x, dcap) && rw.ok[i];
   pt = ok ? expf(__fsub_rn(x, rw.m[i])) : 0.f;
-  const float gr = pt * (round_bf16(dp) - rw.dd[i]);
+  const float gr = pt * ((PV32 ? dp : round_bf16(dp)) - rw.dd[i]);
   dmsum += gr;
   return (gr + (ok && key == rw.arg[i] ? rw.dm[i] : 0.f)) * dcap;
 }
@@ -666,7 +677,7 @@ __device__ __forceinline__ float grad_elem(const BwdParams& p, const Rows& rw,
 // ---------------------------------------------------------------- dq
 
 // Pass 2: dq of 64 rows, and each row's dm (into `stats`) for pass 3.
-template <int HDP, typename T>
+template <int HDP, typename T, bool PV32>
 __global__ void __launch_bounds__(kQThreads)
     flash_bwd_dq_kernel(const BwdParams p) {
   constexpr bool kExact = sizeof(T) == 2;
@@ -734,7 +745,8 @@ __global__ void __launch_bounds__(kQThreads)
     if (p.dots) load_dots<2>(p, bb, kvh, row0 + m0, rows, key0 + n0, s);
     cp_async_wait<1>();   // V (and, the first time, Q and dO')
     __syncthreads();
-    row_key_product<HDP, 2, true, false, !kExact>(dos_s, vs, m0, n0, dp);
+    row_key_product<HDP, 2, true, PV32 && !kExact, !kExact && !PV32>(
+        dos_s, vs, m0, n0, dp);
     cp_async_wait<0>();   // K
     __syncthreads();
     if (!p.dots) logits<HDP, 2, T>(qs, ks, m0, n0, s);
@@ -745,7 +757,8 @@ __global__ void __launch_bounds__(kQThreads)
         const int i = e >> 1, c = n0 + 8 * j + 2 * l.t + (e & 1);
         float pt;
         dss[at<kQKeys>(m0 + l.g + 8 * i, c)] =
-            grad_elem(p, rw, i, key0 + c, s[j][e], dp[j][e], pt, dmsum[i]);
+            grad_elem<PV32>(p, rw, i, key0 + c, s[j][e], dp[j][e], pt,
+                            dmsum[i]);
       }
     __syncthreads();   // dS written; V read
     if (t + 1 < t_hi) load_v(t + 1);
@@ -799,7 +812,7 @@ __global__ void __launch_bounds__(kQThreads)
 // ---------------------------------------------------------------- dk, dv
 
 // Pass 3: dk and dv of 64 keys.
-template <int HDP, typename T>
+template <int HDP, typename T, bool PV32>
 __global__ void __launch_bounds__(kKThreads, 1)
     flash_bwd_dkdv_kernel(const BwdParams p) {
   constexpr bool kExact = sizeof(T) == 2;
@@ -807,9 +820,11 @@ __global__ void __launch_bounds__(kKThreads, 1)
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                      // [kKKeys][HDP]
   float* vs = ks + kKKeys * HDP;         // [kKKeys][HDP], bf16-rounded
+                                         // (PV32: as it is)
   float* qs = vs + kKKeys * HDP;         // [kKRows][HDP]
   float* dos_s = qs + kKRows * HDP;      // [kKRows][HDP]
   float* ps = dos_s + kKRows * HDP;      // [kKRows][kKKeys]: bf16(p~)
+                                         // (PV32: p~)
   float* dss = ps + kKRows * kKKeys;     // [kKRows][kKKeys]: dS
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
@@ -850,7 +865,7 @@ __global__ void __launch_bounds__(kKThreads, 1)
   };
   cp_async_wait<0>();
   __syncthreads();
-  if constexpr (!kExact) {
+  if constexpr (!kExact && !PV32) {
     for (int idx = threadIdx.x; idx < kKKeys * HDP; idx += kKThreads)
       vs[idx] = round_bf16(vs[idx]);
   }
@@ -873,7 +888,8 @@ __global__ void __launch_bounds__(kKThreads, 1)
     if (p.dots) load_dots<1>(p, bb, kvh, rb + m0, r_end, key0 + n0, s);
     cp_async_wait<1>();   // dO' (and V's rounding)
     __syncthreads();
-    row_key_product<HDP, 1, true, false, false>(dos_s, vs, m0, n0, dp);
+    row_key_product<HDP, 1, true, PV32 && !kExact, false>(dos_s, vs, m0,
+                                                          n0, dp);
     cp_async_wait<0>();   // Q
     __syncthreads();
     if (!p.dots) logits<HDP, 1, T>(qs, ks, m0, n0, s);
@@ -883,16 +899,16 @@ __global__ void __launch_bounds__(kKThreads, 1)
       const int i = e >> 1, c = n0 + 2 * l.t + (e & 1);
       const int r = m0 + l.g + 8 * i;
       float pt;
-      dss[at<kKKeys>(r, c)] =
-          grad_elem(p, rw, i, key0 + c, s[0][e], dp[0][e], pt, unused);
-      ps[at<kKKeys>(r, c)] = round_bf16(pt);
+      dss[at<kKKeys>(r, c)] = grad_elem<PV32>(p, rw, i, key0 + c, s[0][e],
+                                              dp[0][e], pt, unused);
+      ps[at<kKKeys>(r, c)] = PV32 ? pt : round_bf16(pt);
     }
     __syncthreads();   // p~ and dS written; dO' and Q read
     // dv += bf16(p~)^T dO': f32 inputs by FMA chains over the rows in
     // order (see the header), bf16 inputs on the tensor cores with
-    // A = p~ (rows x keys, read as keys x rows)
+    // A = p~ (rows x keys, read as keys x rows; split where PV32)
     if constexpr (kExact) {
-      col_product<HDP, NK, kKRows / 8, false, true>(
+      col_product<HDP, NK, kKRows / 8, PV32, true>(
           [&](int k0, float (&x)[4]) { a_cols<kKKeys>(ps, km0, k0, x); },
           dos_s, nd0, dv);
     } else {
@@ -938,7 +954,8 @@ __global__ void __launch_bounds__(kKThreads, 1)
         const int d = nd0 + 8 * j + 2 * l.t + e;
         if (d < p.hd) {
           st(dk_out, o + d, dk[j][2 * i + e] * p.scale);
-          st(dv_out, o + d, round_bf16(dv[j][2 * i + e]));
+          st(dv_out, o + d,
+             PV32 ? dv[j][2 * i + e] : round_bf16(dv[j][2 * i + e]));
         }
       }
   }
@@ -959,7 +976,7 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 
 // `passes`: a mask of the launches to make (1 stats, 2 dq, 4 dk/dv), in
 // that order; each reads what the earlier ones wrote.
-template <int HDP, typename T>
+template <int HDP, typename T, bool PV32>
 cudaError_t launch_bwd(const BwdParams& p, int passes, cudaStream_t s) {
   const long long rows = static_cast<long long>(p.sq) * (p.hq / p.hkv);
   const long long row_blocks = (rows + kQRows - 1) / kQRows;
@@ -977,19 +994,19 @@ cudaError_t launch_bwd(const BwdParams& p, int passes, cudaStream_t s) {
     err = launch(flash_bwd_stats_kernel<HDP, T>, row_grid, kQThreads,
                  stats_smem, s, p);
   if (err == cudaSuccess && (passes & 2))
-    err = launch(flash_bwd_dq_kernel<HDP, T>, row_grid, kQThreads, dq_smem,
-                 s, p);
+    err = launch(flash_bwd_dq_kernel<HDP, T, PV32>, row_grid, kQThreads,
+                 dq_smem, s, p);
   if (err == cudaSuccess && (passes & 4))
-    err = launch(flash_bwd_dkdv_kernel<HDP, T>,
+    err = launch(flash_bwd_dkdv_kernel<HDP, T, PV32>,
                  dim3(heads, static_cast<unsigned>(key_blocks)), kKThreads,
                  dkdv_smem, s, p);
   return err;
 }
 
-template <typename T>
+template <typename T, bool PV32>
 cudaError_t launch_bwd_hd(const BwdParams& p, int passes, cudaStream_t s) {
 #define REPRO_FLASH_BWD_HD(HDP) \
-  if (p.hd <= HDP) return launch_bwd<HDP, T>(p, passes, s);
+  if (p.hd <= HDP) return launch_bwd<HDP, T, PV32>(p, passes, s);
   REPRO_FLASH_BWD_HD(32)   // the swizzle needs rows of 32 words
   REPRO_FLASH_BWD_HD(64)
   REPRO_FLASH_BWD_HD(128)
@@ -1011,14 +1028,14 @@ cudaError_t launch_bwd_hd(const BwdParams& p, int passes, cudaStream_t s) {
 // with which `out` was computed. passes: 7 (all three launches) writes
 // every element of dq, dk and dv; 1, 2 or 4 makes one launch (stats, dq,
 // dk/dv), for timing a pass once a full call has filled the scratch.
-// Returns a CUDA error code (cudaErrorInvalidValue for a shape it does
-// not take).
+// pv32: 1 for the gradient of the forward's f32 p.v variant. Returns a
+// CUDA error code (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, void* dq, void* dk, void* dv, float* dos, float* stats,
     float* dots, int b, int sq, int skv, int hq, int hkv, int hd,
     float scale, int causal, int window, float cap, int q_offset,
-    int kv_len, int bf16, int passes, void* stream) {
+    int kv_len, int bf16, int passes, int pv32, void* stream) {
   if (b < 1 || sq < 1 || skv < 1 || hkv < 1 || hq % hkv || hd < 1 ||
       hd > 256 || passes < 1 || passes > 7)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1035,7 +1052,12 @@ extern "C" int repro_flash_attention_bwd(
                     scale,  cap,    cap > 0.f ? 1.f / cap : 0.f,
                     causal, window, q_offset, kv_len, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16 ? launch_bwd_hd<__nv_bfloat16>(p, passes, s)
-                               : launch_bwd_hd<float>(p, passes, s);
+  cudaError_t err;
+  if (pv32)
+    err = bf16 ? launch_bwd_hd<__nv_bfloat16, true>(p, passes, s)
+               : launch_bwd_hd<float, true>(p, passes, s);
+  else
+    err = bf16 ? launch_bwd_hd<__nv_bfloat16, false>(p, passes, s)
+               : launch_bwd_hd<float, false>(p, passes, s);
   return static_cast<int>(err);
 }

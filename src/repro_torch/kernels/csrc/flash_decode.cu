@@ -33,6 +33,13 @@
 // column, merges the chunks: m = max m_c, l = sum l_c e^(m_c - m),
 // out = sum acc_c e^(m_c - m) / l.
 // A chunk whose row saw only masked keys carries m = -1e30 and drops out.
+//
+// The f32 p.v variant (PV32, REPRO_PERF_OPTS=0): the values are bf16
+// already, so only p needs more bits: each 16-key step multiplies V's
+// fragments by bf16(p) and by bf16(p - bf16(p)) (flash_mma.cuh's
+// pv_k16_hilo), which carries p to about 2^-17 relative, against the
+// bf16 output's 2^-9. Twice the p.v products; the bytes, which bound
+// the route, do not change.
 #include <cuda_bf16.h>
 #include <limits.h>
 
@@ -82,8 +89,9 @@ struct SplitTile {
   static constexpr size_t kSmem = kQBytes + 4 * kTileBytes;  // 2 stages
 };
 
-// VEC: rows_aligned16 (the tiles load by cp.async), else element-wise.
-template <int HDP, bool VEC>
+// VEC: rows_aligned16 (the tiles load by cp.async), else element-wise;
+// PV32: the f32 p.v variant.
+template <int HDP, bool VEC, bool PV32>
 __global__ void __launch_bounds__(SplitTile<HDP>::kThreads)
     flash_split_decode_kernel(const Params p) {
   using C = SplitTile<HDP>;
@@ -160,7 +168,8 @@ __global__ void __launch_bounds__(SplitTile<HDP>::kThreads)
     qk_rows<HDP>(s, q_tile, stage, lane);
     softmax_tile<C::kCols, kKeys>(s, o, m, l, p, masked, qpos, key0, c_hi,
                                   lane);
-    pv_cols<kKeys, C::kCols>(o, s, stage + C::kTileBytes, col0, lane);
+    pv_cols<kKeys, C::kCols, PV32>(o, s, stage + C::kTileBytes, col0,
+                                   lane);
     __syncthreads();   // the stage is free for the load of tile t + 2
   }
   cp_async_wait<0>();
@@ -238,10 +247,10 @@ __global__ void __launch_bounds__(kMergeThreads)
   out[d] = __float2bfloat16_rn(a * inv);
 }
 
-template <int HDP, bool VEC>
+template <int HDP, bool VEC, bool PV32>
 cudaError_t launch_split(const Params& p, cudaStream_t stream) {
   using C = SplitTile<HDP>;
-  auto* kernel = flash_split_decode_kernel<HDP, VEC>;
+  auto* kernel = flash_split_decode_kernel<HDP, VEC, PV32>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmem));
@@ -260,11 +269,17 @@ cudaError_t launch_split(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool VEC>
+template <bool VEC, bool PV32>
 cudaError_t launch_split_hd(const Params& p, cudaStream_t stream) {
-  if (p.hd <= 64) return launch_split<64, VEC>(p, stream);
-  if (p.hd <= 128) return launch_split<128, VEC>(p, stream);
-  return launch_split<256, VEC>(p, stream);
+  if (p.hd <= 64) return launch_split<64, VEC, PV32>(p, stream);
+  if (p.hd <= 128) return launch_split<128, VEC, PV32>(p, stream);
+  return launch_split<256, VEC, PV32>(p, stream);
+}
+
+template <bool PV32>
+cudaError_t launch_split_variant(const Params& p, cudaStream_t stream) {
+  return rows_aligned16(p) ? launch_split_hd<true, PV32>(p, stream)
+                           : launch_split_hd<false, PV32>(p, stream);
 }
 
 }  // namespace
@@ -273,8 +288,8 @@ cudaError_t launch_split_decode(const Params& p, cudaStream_t stream) {
   if (p.hd < 1 || p.hd > 256 || p.n_chunks < 1 || p.scratch == nullptr ||
       static_cast<long long>(p.sq) * (p.hq / p.hkv) > kMaxRows)
     return cudaErrorInvalidValue;
-  return rows_aligned16(p) ? launch_split_hd<true>(p, stream)
-                           : launch_split_hd<false>(p, stream);
+  return p.pv32 ? launch_split_variant<true>(p, stream)
+                : launch_split_variant<false>(p, stream);
 }
 
 }  // namespace repro_flash

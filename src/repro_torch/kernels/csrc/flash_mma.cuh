@@ -248,10 +248,33 @@ __device__ __forceinline__ void pv_k16(float (&o)[COLS / 8][4],
   }
 }
 
+// pv_k16 for the f32 p.v variant: o += (A_hi + A_lo) . V, each V
+// fragment read once and multiplied by both (A_hi first).
+template <int KEYS, int COLS>
+__device__ __forceinline__ void pv_k16_hilo(float (&o)[COLS / 8][4],
+                                            const uint32_t (&a)[4],
+                                            const uint32_t (&a_lo)[4],
+                                            uint32_t v_tile, int ks,
+                                            int col0, int lane) {
+#pragma unroll
+  for (int dn = 0; dn < COLS / 16; ++dn) {
+    uint32_t b0, b1, b2, b3;
+    ldsm_x4_t(v_tile + tile_off<KEYS>(ks * 16 + ((lane >> 3) & 1) * 8 +
+                                          (lane & 7),
+                                      col0 / 8 + dn * 2 + (lane >> 4)),
+              b0, b1, b2, b3);
+    mma_bf16(o[2 * dn], a, b0, b1);
+    mma_bf16(o[2 * dn + 1], a, b2, b3);
+    mma_bf16(o[2 * dn], a_lo, b0, b1);
+    mma_bf16(o[2 * dn + 1], a_lo, b2, b3);
+  }
+}
+
 // o += P . V[:, col0 .. col0 + COLS): P the probabilities s (a KEYS-key
 // logits tile in the C layout) rounded to bf16 in registers, which is
-// the A operand's layout.
-template <int KEYS, int COLS>
+// the A operand's layout; with PV32 (the f32 p.v variant) P is
+// bf16(p) + bf16(p - bf16(p)), two products (p_operand_lo).
+template <int KEYS, int COLS, bool PV32 = false>
 __device__ __forceinline__ void pv_cols(float (&o)[COLS / 8][4],
                                         const float (&s)[KEYS / 8][4],
                                         uint32_t v_tile, int col0, int lane) {
@@ -259,7 +282,13 @@ __device__ __forceinline__ void pv_cols(float (&o)[COLS / 8][4],
   for (int ks = 0; ks < KEYS / 16; ++ks) {
     uint32_t a[4];
     p_operand<KEYS>(a, s, ks);
-    pv_k16<KEYS, COLS>(o, a, v_tile, ks, col0, lane);
+    if constexpr (PV32) {
+      uint32_t a_lo[4];
+      p_operand_lo<KEYS>(a_lo, s, ks);
+      pv_k16_hilo<KEYS, COLS>(o, a, a_lo, v_tile, ks, col0, lane);
+    } else {
+      pv_k16<KEYS, COLS>(o, a, v_tile, ks, col0, lane);
+    }
   }
 }
 

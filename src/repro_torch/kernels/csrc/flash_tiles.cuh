@@ -37,6 +37,7 @@ struct Params {
   float cap;          // softcap, <= 0: none
   int causal, window, q_offset, kv_len;
   int n_chunks;       // split_decode's chunks per (batch, kv head)
+  int pv32;           // the f32 p.v variant (REPRO_PERF_OPTS=0)
 };
 
 // Whether every row of q, k, v and out starts on 16 bytes.
@@ -111,6 +112,23 @@ __device__ __forceinline__ void p_operand(uint32_t (&a)[4],
   a[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
   a[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
   a[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
+}
+
+// What p_operand leaves of each probability, p - bf16(p) (exact in
+// f32), rounded to bf16: the f32 p.v variant's second A operand, with
+// which hi + lo carries p to about 2^-17 relative (bf16 values are
+// exact, so p.v is then about f32's).
+__device__ __forceinline__ float bf16_rest(float x) {
+  return x - __bfloat162float(__float2bfloat16_rn(x));
+}
+template <int KEYS>
+__device__ __forceinline__ void p_operand_lo(uint32_t (&a)[4],
+                                             const float (&s)[KEYS / 8][4],
+                                             int ks) {
+  a[0] = pack_bf16(bf16_rest(s[2 * ks][0]), bf16_rest(s[2 * ks][1]));
+  a[1] = pack_bf16(bf16_rest(s[2 * ks][2]), bf16_rest(s[2 * ks][3]));
+  a[2] = pack_bf16(bf16_rest(s[2 * ks + 1][0]), bf16_rest(s[2 * ks + 1][1]));
+  a[3] = pack_bf16(bf16_rest(s[2 * ks + 1][2]), bf16_rest(s[2 * ks + 1][3]));
 }
 
 // 2^x on the special-function unit (relative error about 2^-22; a

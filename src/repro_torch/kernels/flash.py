@@ -7,12 +7,17 @@ masking (and ``q_offset`` for decode and continuation), a sliding
 ``window``, a ``logit_cap`` tanh softcap and a ``kv_len`` bound on the
 keys; m, l and the accumulator in f32, the output in the input type.
 It ports the semantics of the attention the reference's model runs
-(``layers.flash_attention`` at its default), which the kernel stands in
-for on the card: probabilities and values are rounded to bf16 for the
-p.v product, summed in f32, for f32 inputs too. The Pallas kernel keeps
-p.v in f32, so for f32 inputs this kernel is less precise than the one
-it replaces (the difference is within the reference's 5e-3 f32
-tolerance of the two).
+(``layers.flash_attention``), which the kernel stands in for on the
+card. At the model's default, probabilities and values are rounded to
+bf16 for the p.v product, summed in f32, for f32 inputs too. Under
+``REPRO_PERF_OPTS=0`` the model keeps p.v in f32, as the Pallas kernel
+does; every route has that variant too (``pv32``): ``tc_prefill`` and
+``split_decode`` add a second bf16 product of ``bf16(p - bf16(p))``
+(the values are bf16 already, so p.v then carries p to about 2^-17),
+``tc_f32`` takes p.v as a split TF32 product of the f32 p and v (three
+products, as its q.k). ``pv32`` is an argument (default False):
+``ops.fused_attention`` reads the setting once a call and passes it
+down, to the backward too.
 
 On the card every call takes one of three routes, a pure function of
 the shapes and the type (:func:`_route`); (query, head) pairs of one
@@ -46,7 +51,8 @@ heads of a kv head share every K/V tile:
 
 The caller's route is the one launched; nothing falls back. Each call
 counts one launch in ``flash_attention_fused.launches`` and one in
-``flash_attention_fused.launches_by_route[route]``.
+``flash_attention_fused.launches_by_route[route]``, and a call of the
+f32 p.v variant one more in ``launches_pv32[route + "_pv32"]``.
 
 ``flash_attention_fused`` keeps the reference's contract (Sq and Skv
 divide by the block sizes); the Hopper kernels' tiles take ragged
@@ -73,6 +79,10 @@ bits); for bf16 inputs every product is on the tensor cores. A model of
 its arithmetic is
 :func:`repro_torch.kernels.ref.flash_attention_bwd_split_ref`. CPU
 tensors run :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.
+Its f32 p.v variant (``pv32``, the gradient of the forward's) rounds
+nothing to bf16: dP takes v whole (split TF32 for f32 inputs), dv takes
+p~ whole (split TF32 for bf16 inputs; f32 inputs keep the FMA chain),
+and neither dP nor dv is rounded.
 """
 from __future__ import annotations
 
@@ -90,6 +100,7 @@ BLOCK_KV = 512
 MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("tc_prefill", "split_decode", "tc_f32")
+PV32_ROUTES = tuple(r + "_pv32" for r in ROUTES)   # the f32 p.v variants
 _ROUTE_CODE = {"tc_f32": 0, "tc_prefill": 1, "split_decode": 2}
 # tc_prefill: (query, head) rows a CTA; a 1-D grid
 TC_ROWS_PER_CTA = 128
@@ -145,7 +156,8 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor,
                           logit_cap: float | None = None,
                           q_offset: int = 0, kv_len: int | None = None,
                           block_q: int = BLOCK_Q,
-                          block_kv: int = BLOCK_KV) -> torch.Tensor:
+                          block_kv: int = BLOCK_KV,
+                          pv32: bool = False) -> torch.Tensor:
     """Fused attention. q: ``[B, Sq, Hq, hd]``; k, v: ``[B, Skv, Hkv, hd]``.
 
     Sq must divide by block_q and Skv by block_kv, as in the reference
@@ -156,7 +168,7 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("pad Sq/Skv to the block sizes")
     return flash_attention_ragged(q, k, v, causal=causal, window=window,
                                   logit_cap=logit_cap, q_offset=q_offset,
-                                  kv_len=kv_len)
+                                  kv_len=kv_len, pv32=pv32)
 
 
 def flash_attention_ragged(q: torch.Tensor, k: torch.Tensor,
@@ -164,13 +176,15 @@ def flash_attention_ragged(q: torch.Tensor, k: torch.Tensor,
                            window: int | None = None,
                            logit_cap: float | None = None,
                            q_offset: int = 0,
-                           kv_len: int | None = None) -> torch.Tensor:
+                           kv_len: int | None = None,
+                           pv32: bool = False) -> torch.Tensor:
     """The fused attention on any Sq and Skv, keys bounded by ``kv_len``
     (None: Skv). ``q_offset`` and ``kv_len`` are plain ints passed to the
     kernel at launch. CUDA tensors launch the route :func:`_route`
     names (counted in ``flash_attention_fused.launches`` and
-    ``.launches_by_route``) or raise; CPU tensors run
-    ``flash_attention_ref``.
+    ``.launches_by_route``; its f32 p.v variant where ``pv32``, also
+    in ``.launches_pv32``) or raise; CPU tensors run
+    ``flash_attention_ref`` of the same variant.
     """
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -183,7 +197,7 @@ def flash_attention_ragged(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    logit_cap=logit_cap, q_offset=q_offset,
-                                   kv_len=kv_len)
+                                   kv_len=kv_len, pv32=pv32)
     build.require_cuda("flash_attention_fused", q, k, v)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_fused takes one type, got "
@@ -207,15 +221,19 @@ def flash_attention_ragged(q: torch.Tensor, k: torch.Tensor,
             hkv, hd, 1.0 / math.sqrt(hd), int(causal),
             0 if window is None else int(window),
             0.0 if logit_cap is None else float(logit_cap), int(q_offset),
-            kv_len, _ROUTE_CODE[route], n_chunks, build.stream_of(q))
+            kv_len, _ROUTE_CODE[route], n_chunks, int(pv32),
+            build.stream_of(q))
     build.check(lib, "flash_attention_fused", rc)
     flash_attention_fused.launches += 1
     flash_attention_fused.launches_by_route[route] += 1
+    if pv32:
+        flash_attention_fused.launches_pv32[route + "_pv32"] += 1
     return out
 
 
 flash_attention_fused.launches = 0
 flash_attention_fused.launches_by_route = dict.fromkeys(ROUTES, 0)
+flash_attention_fused.launches_pv32 = dict.fromkeys(PV32_ROUTES, 0)
 
 # flash_attention_bwd: keys a dk/dv CTA, rows a stats or dq CTA, and
 # the grids' y limit
@@ -228,13 +246,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
                         logit_cap: float | None = None, q_offset: int = 0,
-                        kv_len: int | None = None):
+                        kv_len: int | None = None, pv32: bool = False):
     """The gradient of :func:`flash_attention_ragged` at ``(q, k, v)``
     against ``dout``, given its output ``out``: ``(dq, dk, dv)`` in the
-    input type. CUDA tensors launch ``csrc/flash_bwd.cu`` (counted in
-    ``flash_attention_bwd.launches``, one a call) or raise; CPU tensors
-    run ``ref.flash_attention_bwd_ref``. Pairs a row cannot see get no
-    gradient, and neither does a row that sees no key."""
+    input type, for the forward's p.v variant ``pv32``. CUDA tensors launch ``csrc/flash_bwd.cu`` (counted in
+    ``flash_attention_bwd.launches``, one a call, and the f32 p.v
+    variant also in ``.launches_pv32["bwd_pv32"]``) or raise; CPU
+    tensors run ``ref.flash_attention_bwd_ref``. Pairs a row cannot see
+    get no gradient, and neither does a row that sees no key."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if k.shape != (b, skv, hkv, hd) or v.shape != k.shape \
@@ -248,7 +267,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal,
                                        window=window, logit_cap=logit_cap,
-                                       q_offset=q_offset, kv_len=kv_len)
+                                       q_offset=q_offset, kv_len=kv_len,
+                                       pv32=pv32)
     build.require_cuda("flash_attention_bwd", q, k, v, out, dout)
     if any(t.dtype != q.dtype for t in (k, v, out, dout)) \
             or q.dtype not in DTYPES:
@@ -272,12 +292,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scratch = bwd_scratch(q, skv)
     _launch_bwd(q, k, v, out, dout, (dq, dk, dv), scratch,
                 dict(causal=causal, window=window, logit_cap=logit_cap,
-                     q_offset=q_offset, kv_len=kv_len), BWD_ALL_PASSES)
+                     q_offset=q_offset, kv_len=kv_len, pv32=pv32),
+                BWD_ALL_PASSES)
     flash_attention_bwd.launches += 1
+    if pv32:
+        flash_attention_bwd.launches_pv32["bwd_pv32"] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_pv32 = {"bwd_pv32": 0}
 
 # the backward's launches as a mask: 1 stats, 2 dq, 4 dk/dv
 BWD_ALL_PASSES = 7
@@ -307,7 +331,8 @@ def _launch_bwd(q, k, v, out, dout, grads, scratch, kw, passes) -> None:
     """``csrc/flash_bwd.cu`` on checked CUDA tensors: the launches of
     ``passes`` (``BWD_ALL_PASSES`` for the gradient; one pass at a time
     times a pass once a full call has filled ``scratch``). ``kv_len`` in
-    ``kw`` is an int <= Skv. Counts nothing."""
+    ``kw`` is an int <= Skv; ``kw["pv32"]`` (absent: False) picks the
+    f32 p.v variant. Counts nothing."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     window, cap = kw["window"], kw["logit_cap"]
@@ -320,7 +345,7 @@ def _launch_bwd(q, k, v, out, dout, grads, scratch, kw, passes) -> None:
             0 if window is None else int(window),
             0.0 if cap is None else float(cap), int(kw["q_offset"]),
             kw["kv_len"], int(q.dtype == torch.bfloat16), passes,
-            build.stream_of(q))
+            int(kw.get("pv32", False)), build.stream_of(q))
     build.check(lib, "flash_attention_bwd", rc)
 
 
@@ -328,27 +353,31 @@ class FlashAttention(torch.autograd.Function):
     """Attention with its gradient: the forward is
     :func:`flash_attention_ragged` (the routed kernel on the card, the
     plain version on the CPU), the backward :func:`flash_attention_bwd`
-    (the backward kernel on the card, the plain backward on the CPU). On
+    (the backward kernel on the card, the plain backward on the CPU), both
+    of the p.v variant ``pv32``. On
     ``meta`` tensors (a dry-run's trace) both give their results' shapes
     and types alone: the output is q's, the gradients the inputs'."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, logit_cap, q_offset, kv_len):
+    def forward(ctx, q, k, v, causal, window, logit_cap, q_offset, kv_len,
+                pv32=False):
         if q.device.type == "meta":
             out = torch.empty_like(q)
         else:
             out = flash_attention_ragged(q, k, v, causal=causal,
                                          window=window, logit_cap=logit_cap,
-                                         q_offset=q_offset, kv_len=kv_len)
+                                         q_offset=q_offset, kv_len=kv_len,
+                                         pv32=pv32)
         ctx.save_for_backward(q, k, v, out)
         ctx.kw = dict(causal=causal, window=window, logit_cap=logit_cap,
-                      q_offset=q_offset, kv_len=kv_len)
+                      q_offset=q_offset, kv_len=kv_len, pv32=pv32)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        kw = ctx.kw
+        kw = dict(ctx.kw)
+        pv32 = kw.pop("pv32")
         _cost.count_attention(
             q, k, causal=kw["causal"], window=kw["window"],
             q_offset=kw["q_offset"], kv_len=kw["kv_len"], backward=True)
@@ -357,5 +386,6 @@ class FlashAttention(torch.autograd.Function):
                 dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
             else:
                 dq, dk, dv = flash_attention_bwd(q, k, v, out,
-                                                 dout.contiguous(), **kw)
-        return dq, dk, dv, None, None, None, None, None
+                                                 dout.contiguous(), **kw,
+                                                 pv32=pv32)
+        return dq, dk, dv, None, None, None, None, None, None

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import _cost
+from repro_torch._perf_opts import perf_opts_enabled
 from repro_torch.core._tensor import stable_partition_order
 from repro_torch.core.requests import PAD_OFFSET, RequestList
 from repro_torch.kernels import coalesce_kernel, flash, fused_round
@@ -247,17 +248,22 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the backward kernel. CPU tensors run the plain version; ``meta``
     tensors (a dry-run's trace) give the output's shape and type alone.
     An active ``launch.op_analysis`` counter counts the call by formula
-    and nothing inside it, so the count is the same whatever runs it."""
+    and nothing inside it, so the count is the same whatever runs it.
+    The p.v variant follows ``REPRO_PERF_OPTS`` (read once a call, as
+    the reference's attention reads it): off, every route and the
+    backward take their f32 p.v variant (``pv32``)."""
     _cost.count_attention(q, k, causal=causal, window=window,
                           q_offset=q_offset, kv_len=kv_len)
+    pv32 = not perf_opts_enabled()
     with _cost.uncounted():
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return flash.FlashAttention.apply(q, k, v, causal, window,
-                                              logit_cap, q_offset, kv_len)
+                                              logit_cap, q_offset, kv_len,
+                                              pv32)
         if q.device.type == "meta":
             return torch.empty_like(q)
         return flash.flash_attention_ragged(
             q, k, v, causal=causal, window=window, logit_cap=logit_cap,
-            q_offset=q_offset, kv_len=kv_len)
+            q_offset=q_offset, kv_len=kv_len, pv32=pv32)

@@ -13,6 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch._perf_opts import perf_opts_enabled
 from repro_torch.core._tensor import bits_of, wrap_int32
 from repro_torch.core.codec import get_codec
 from repro_torch.core.coalesce import pack_data
@@ -465,17 +466,29 @@ def pack_tile_walk_ref(s_off: torch.Tensor, s_len: torch.Tensor,
 
 
 ATTENTION_CHUNK = 4096   # the reference's default (REPRO_PERF_OPTS on)
+ATTENTION_CHUNK_PV32 = 1024   # REPRO_PERF_OPTS=0: f32 p.v
+
+
+def attention_chunk(pv32: bool) -> int:
+    """The plain attention's keys a chunk for a p.v variant, as the
+    reference ties them to its setting."""
+    return ATTENTION_CHUNK_PV32 if pv32 else ATTENTION_CHUNK
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, window: int | None,
                         logit_cap: float | None, q_offset: int,
-                        kv_len: int | None = None) -> torch.Tensor:
+                        kv_len: int | None = None,
+                        pv32: bool | None = None) -> torch.Tensor:
     """Chunked (flash-style) GQA attention, O(S * chunk) memory — the
-    reference's ``models.layers.flash_attention`` line for line at its
-    default (chunk 4096; probabilities and values rounded to bf16 for
-    the PV product, accumulated in f32), and the plain version of
-    ``flash.flash_attention_fused``.
+    reference's ``models.layers.flash_attention`` line for line, and the
+    plain version of ``flash.flash_attention_fused``. At the reference's
+    default (``pv32`` False: chunk 4096) the probabilities and values
+    are rounded to bf16 for the PV product, accumulated in f32; with
+    ``pv32`` (chunk 1024, ``REPRO_PERF_OPTS=0`` in the reference) the
+    PV product is an f32 einsum of the f32 probabilities and values, as
+    the TPU kernel computes it. ``pv32=None`` follows the setting
+    (``_perf_opts.perf_opts_enabled``), read at the call.
 
     q: ``[B, Sq, Hq, hd]``; k, v: ``[B, Skv, Hkv, hd]``. q_offset: the
     position of q[0] within the kv sequence; kv_len: the valid kv prefix
@@ -484,7 +497,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    chunk = ATTENTION_CHUNK
+    if pv32 is None:
+        pv32 = not perf_opts_enabled()
+    chunk = attention_chunk(pv32)
     qr = q.reshape(b, sq, hkv, g, hd).float()
     scale = 1.0 / math.sqrt(hd)
     nchunks = -(-skv // chunk)
@@ -517,11 +532,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         probs = torch.exp(logits - m_new[..., None])
         del logits
         l = l * alpha + probs.sum(dim=-1)
-        # bf16 operands, f32 products and sums: the reference's
-        # preferred_element_type=f32 einsum of bf16 probs and values
-        pv = torch.einsum("bskgc,bckd->bskgd",
-                          probs.to(torch.bfloat16).float(),
-                          vci.to(torch.bfloat16).float())
+        if pv32:
+            pv = torch.einsum("bskgc,bckd->bskgd", probs, vci)
+        else:
+            # bf16 operands, f32 products and sums: the reference's
+            # preferred_element_type=f32 einsum of bf16 probs and values
+            pv = torch.einsum("bskgc,bckd->bskgd",
+                              probs.to(torch.bfloat16).float(),
+                              vci.to(torch.bfloat16).float())
         del probs
         acc = acc * alpha[..., None] + pv
         m = m_new
@@ -533,14 +551,16 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, out: torch.Tensor,
                             dout: torch.Tensor, *, causal: bool,
                             window: int | None, logit_cap: float | None,
-                            q_offset: int, kv_len: int | None = None):
+                            q_offset: int, kv_len: int | None = None,
+                            pv32: bool | None = None):
     """The plain backward of attention, and of the
     ``flash.flash_attention_bwd`` kernel: the autograd gradient of
     :func:`flash_attention_ref` at ``(q, k, v)`` against ``dout``, as
     ``(dq, dk, dv)`` in the inputs' types. ``out`` (the forward's
     output) is what the kernel takes; the plain version recomputes it.
-    Autograd rounds to bf16 what the forward rounds: each element of
-    dP = dout . bf16(v) and each key's dv."""
+    Autograd rounds to bf16 what the forward rounds: at the default p.v
+    each element of dP = dout . bf16(v) and each key's dv; with ``pv32``
+    nothing (None: the setting's, which the plain attention reads)."""
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} / dout "
                          f"{tuple(dout.shape)} must be shaped like q "
@@ -549,7 +569,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         o = flash_attention_ref(*leaves, causal=causal, window=window,
                                 logit_cap=logit_cap, q_offset=q_offset,
-                                kv_len=kv_len)
+                                kv_len=kv_len, pv32=pv32)
         return torch.autograd.grad(o, leaves, dout.to(o.dtype))
 
 
@@ -599,7 +619,8 @@ def flash_attention_bwd_split_ref(q: torch.Tensor, k: torch.Tensor,
                                   window: int | None,
                                   logit_cap: float | None, q_offset: int,
                                   kv_len: int | None = None,
-                                  terms: int = 3, logits: str = "fma"):
+                                  terms: int = 3, logits: str = "fma",
+                                  pv32: bool = False):
     """A model of the backward kernel's arithmetic
     (``csrc/flash_bwd.cu``) in plain PyTorch: the function of
     :func:`flash_attention_bwd_ref` written out (not autograd) with each
@@ -622,7 +643,10 @@ def flash_attention_bwd_split_ref(q: torch.Tensor, k: torch.Tensor,
     whole-K product summed by PyTorch's f32 matmul, while the kernel
     sums the terms of each 8-wide k-step in the mma (whose additions
     truncate) and adds that into f32; and an f64 step of the dv chain
-    rounds twice where the FMA rounds once. Shapes and types as
+    rounds twice where the FMA rounds once. With ``pv32`` the model is
+    of the kernel's f32 p.v variant: nothing is rounded to bf16 (v, p~,
+    dP, dv), dP's v is split like its other operand, and for bf16 inputs
+    so is dv's p~. Shapes and types as
     :func:`flash_attention_bwd_ref`'s."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -634,15 +658,15 @@ def flash_attention_bwd_split_ref(q: torch.Tensor, k: torch.Tensor,
         return (t.float().reshape(b, sq, hkv, g, hd).permute(0, 2, 1, 3, 4)
                 .reshape(b, hkv, sq * g, hd))
 
-    def bf16(t):
-        return t.to(torch.bfloat16).float()
+    def bf16(t):   # the default variant's roundings; none with pv32
+        return t if pv32 else t.to(torch.bfloat16).float()
 
     qr, o, do = rows(q), rows(out), rows(dout)
     kf = k.float().permute(0, 2, 1, 3)
     vb = bf16(v.float().permute(0, 2, 1, 3))
     if logits == "fma":
         # flash_attention_ref's einsum, chunk by padded chunk
-        chunk = ATTENTION_CHUNK
+        chunk = attention_chunk(pv32)
         nchunks = -(-skv // chunk)
         kc = F.pad(k, (0, 0, 0, 0, 0, nchunks * chunk - skv)) \
             .reshape(b, nchunks, chunk, hkv, hd)
@@ -703,7 +727,8 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool,
                               window: int | None, logit_cap: float | None,
                               q_offset: int, kv_len: int | None = None,
-                              n_chunks: int, tile: int = 64) -> torch.Tensor:
+                              n_chunks: int, tile: int = 64,
+                              pv32: bool = False) -> torch.Tensor:
     """The algorithm of ``flash``'s ``split_decode`` route in plain
     PyTorch: the keys some query sees, ``[lo, hi)``, cut into
     ``n_chunks`` chunks of whole ``tile``-key tiles; per chunk a partial
@@ -712,7 +737,9 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
     m = -1e30, l = 0, acc = 0); then the merge ``m = max m_c``,
     ``l = sum l_c e^(m_c - m)``, ``out = sum acc_c e^(m_c - m) / l``.
     The same function as :func:`flash_attention_ref` for every row with
-    a visible key. Shapes as there."""
+    a visible key. With ``pv32`` the kernel's f32 p.v variant: p as
+    ``bf16(p) + bf16(p - bf16(p))``, two bf16 products against the bf16
+    values (exact for bf16 inputs). Shapes as there."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -749,9 +776,14 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
         probs = torch.exp(logits - m[..., None])
         ms.append(m)
         ls.append(probs.sum(dim=-1))
-        accs.append(torch.einsum(
-            "bskgc,bckd->bskgd", probs.to(torch.bfloat16).float(),
-            v[:, c_lo:c_hi].to(torch.bfloat16).float()))
+        vb = v[:, c_lo:c_hi].to(torch.bfloat16).float()
+        p_hi = probs.to(torch.bfloat16).float()
+        acc = torch.einsum("bskgc,bckd->bskgd", p_hi, vb)
+        if pv32:
+            acc = acc + torch.einsum(
+                "bskgc,bckd->bskgd",
+                (probs - p_hi).to(torch.bfloat16).float(), vb)
+        accs.append(acc)
     m_c = torch.stack(ms)
     w = torch.exp(m_c - m_c.amax(dim=0))
     l = (torch.stack(ls) * w).sum(dim=0)
@@ -771,7 +803,8 @@ def flash_attention_tc_f32_ref(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool,
                                window: int | None, logit_cap: float | None,
                                q_offset: int, kv_len: int | None = None,
-                               terms: int = 3) -> torch.Tensor:
+                               terms: int = 3,
+                               pv32: bool = False) -> torch.Tensor:
     """A model of the arithmetic of ``flash``'s ``tc_f32`` route in plain
     PyTorch: rows ``s * g + h`` of each (batch, kv head) in blocks of
     ``F32_ROWS``, each block walking the ``F32_KEYS``-key tiles some row
@@ -785,8 +818,9 @@ def flash_attention_tc_f32_ref(q: torch.Tensor, k: torch.Tensor,
     kernel sums each product over the head dim in 8-wide mma steps and
     l per lane; here PyTorch's matmul and sum take other orders. Equal
     to :func:`flash_attention_ref`'s function for every row that sees a
-    key; a row that sees none gives what its block's walk leaves.
-    Shapes as there; f32 out."""
+    key; a row that sees none gives what its block's walk leaves. With
+    ``pv32`` p.v is the kernel's f32 variant, the split TF32 product of
+    the f32 p and v (:func:`_split_mm`, lo rounded). Shapes as there; f32 out."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -801,8 +835,9 @@ def flash_attention_tc_f32_ref(q: torch.Tensor, k: torch.Tensor,
     qr = (q.float().reshape(b, sq, hkv, g, hd).permute(0, 2, 1, 3, 4)
           .reshape(b, hkv, n_rows, hd))
     kp = F.pad(k.float().permute(0, 2, 1, 3), (0, 0, 0, pad))
-    vp = F.pad(v.float().permute(0, 2, 1, 3), (0, 0, 0, pad)) \
-        .to(torch.bfloat16).float()
+    vp = F.pad(v.float().permute(0, 2, 1, 3), (0, 0, 0, pad))
+    if not pv32:
+        vp = vp.to(torch.bfloat16).float()
     keep = (torch.arange(n_tiles * F32_KEYS, device=dev) < key_end)
     kp, vp = kp * keep[:, None], vp * keep[:, None]   # zero past key_end
     out = torch.empty((b, hkv, n_rows, hd), dtype=torch.float32, device=dev)
@@ -834,8 +869,9 @@ def flash_attention_tc_f32_ref(q: torch.Tensor, k: torch.Tensor,
             alpha = torch.exp(m - m_new)
             p = torch.exp(x - m_new[..., None])
             l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + \
+            pv = _split_mm(p, vp[:, :, c0:c1], 3) if pv32 else \
                 p.to(torch.bfloat16).float() @ vp[:, :, c0:c1]
+            acc = acc * alpha[..., None] + pv
             m = m_new
         out[:, :, r0:r1] = acc / torch.clamp(l[..., None], min=1e-30)
     return (out.reshape(b, hkv, sq, g, hd).permute(0, 2, 1, 3, 4)

@@ -117,12 +117,15 @@ def _grow_caches(state: T.DecodeState, extra: int) -> T.DecodeState:
                               for c in state.kv])
 
 
-def main():
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's arguments: the reference's (``--smoke`` is accepted and
+    unread, as there) and ``--device``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2_9b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
@@ -133,7 +136,11 @@ def main():
     ap.add_argument("--no-node-cache", action="store_true",
                     help="disable the node-level read cache on restore "
                          "(per-rank fetch baseline)")
-    args = ap.parse_args()
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = reduced(configs.get(args.arch))

@@ -23,6 +23,13 @@ projections and the MLP promote mixed operand types as ``jnp.einsum``
 does (:func:`_mm`): the enc-dec reference feeds f32 frames to bf16
 weights, so its encoder runs in f32, and its decoder's cross-attention
 takes bf16 queries against f32 keys and values.
+
+``perf_opts_enabled`` is the reference's ``REPRO_PERF_OPTS`` switch,
+read at every call. Off, the attention takes its keys 1024 at a time
+and keeps p.v in f32 (the kernels' f32 p.v variants on the card). The
+reference's other use of it, the decode layer loop's unroll
+(``src/repro/models/transformer.py:252-264``), has no eager counterpart
+and is not ported: PyTorch runs the layer loop as written either way.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import compat as C
+from repro_torch._perf_opts import perf_opts_enabled  # noqa: F401
 from repro_torch.compat import P
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig

@@ -1546,3 +1546,195 @@ def test_cuda_input_specs_steps_run_on_the_card_as_traced_on_meta(cuda,
     assert outs and all(bool(torch.isfinite(t).all()) for t in outs)
     if kind == "train":
         assert t_flash.flash_attention_bwd.launches > bwd
+
+
+# ------------------------------------------------- REPRO_PERF_OPTS=0: f32 p.v
+
+# f32 inputs: the f32 p.v variant against the plain version with the
+# setting off, by relative L2 (the default variant, whose bf16 p and v
+# leave about 2e-3, must fail it); bf16 inputs: ``_attention_close`` and
+# the share of output elements equal to the plain output's bf16 bits
+PV32_REL_L2 = 1e-4
+PV32_BF16_SHARE = 0.95
+# every route at every head-dim tile: tc_prefill (f32 cases take tc_f32),
+# split_decode, odd head dims, kv_len, window and softcap
+PV32_CASES = [FLASH_CASES[i] for i in (1, 4, 6, 7, 11, 16, 18, 19, 20, 21,
+                                       22, 23, 24)]
+
+
+def _pv32_inputs(cuda, case, dtype):
+    b, sq, skv, hq, hkv, hd, causal, window, cap, q_offset, kv_len = case
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sq + skv + hd + 7)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+               for s in ((b, sq, hq, hd), (b, skv, hkv, hd),
+                         (b, skv, hkv, hd)))
+    kw = dict(causal=causal, window=window, logit_cap=cap,
+              q_offset=q_offset, kv_len=kv_len)
+    return q, k, v, kw
+
+
+def _rel_l2(got, want):
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp(min=1e-30))
+
+
+def _bit_share(got, want):
+    """The share of elements whose bits equal the plain output's."""
+    return float((got.view(torch.int16) == want.view(torch.int16))
+                 .float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PV32_CASES)
+def test_cuda_flash_pv32_equals_the_plain_f32_pv(cuda, dtype, case):
+    """The f32 p.v variant of the route the shape names against
+    ``flash_attention_ref(pv32=True)`` (chunk 1024, an f32 p.v): f32 at
+    relative L2 ``PV32_REL_L2``, which the default variant misses; bf16
+    within ``_attention_close`` and with at least ``PV32_BF16_SHARE`` of
+    its elements bit-equal to the plain output, more than the default
+    variant's. Counted once in ``launches_by_route`` and in
+    ``launches_pv32``."""
+    from repro_torch.kernels import flash as t_flash
+    q, k, v, kw = _pv32_inputs(cuda, case, dtype)
+    route = _expected_route(case, dtype)
+    by_route = dict(t_flash.flash_attention_fused.launches_by_route)
+    pv32 = dict(t_flash.flash_attention_fused.launches_pv32)
+    got = t_flash.flash_attention_ragged(q, k, v, pv32=True, **kw)
+    by_route[route] += 1
+    pv32[route + "_pv32"] += 1
+    assert t_flash.flash_attention_fused.launches_by_route == by_route
+    assert t_flash.flash_attention_fused.launches_pv32 == pv32
+    want = t_ref.flash_attention_ref(q, k, v, pv32=True, **kw)
+    default = t_flash.flash_attention_ragged(q, k, v, pv32=False, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    _attention_close(got, want)
+    if dtype == torch.float32:
+        assert _rel_l2(got, want) <= PV32_REL_L2
+        assert _rel_l2(default, want) > PV32_REL_L2
+    else:
+        share, share_default = _bit_share(got, want), _bit_share(default, want)
+        assert share >= PV32_BF16_SHARE and share > share_default, (
+            share, share_default)
+
+
+# bf16 gradients of the backward's f32 p.v variant against the f32 p.v
+# gradient of the same bf16 values taken in f32, rounded to bf16: the
+# share of dv's elements bit-equal to it (the variant splits p~ for dv
+# and rounds only its result; the default's bf16(p~) leaves 0.70 to 0.90
+# of them equal, the variant's model 1.000, on the CPU models
+# flash_attention_bwd_split_ref of both variants at these cases). dq and
+# dk carry D = dO' . out from the bf16 output the kernel is given (that
+# rounding alone leaves about 0.66 of them equal, the default's rounded
+# dP about 0.55): there the variant must be nearer than the default
+PV32_BWD_DV_SHARE = 0.99
+
+
+def _bf16_bwd_pv32_check(got, default, want32):
+    """The bf16 backward's f32 p.v variant (``got``) and its default
+    (``default``) against ``want32``, the f32 p.v gradient in f32:
+    dv's bit-equal share (of ``want32`` rounded to bf16) at least
+    ``PV32_BWD_DV_SHARE``, the default's below it; dq's and dk's share
+    above the default's and their relative L2 distance below it.
+    Returns the measured ``{grad: (share, default share, rel L2, default
+    rel L2)}``."""
+    seen = {}
+    for name, g, d, w in zip(("dq", "dk", "dv"), got, default, want32):
+        wb = w.to(torch.bfloat16)
+        seen[name] = (_bit_share(g, wb), _bit_share(d, wb), _rel_l2(g, w),
+                      _rel_l2(d, w))
+    share, share_default, _, _ = seen["dv"]
+    assert share >= PV32_BWD_DV_SHARE > share_default, seen
+    for name in ("dq", "dk"):
+        share, share_default, rel, rel_default = seen[name]
+        assert share > share_default and rel < rel_default, (name, seen)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [BWD_CASES[i] for i in (0, 1, 3, 4, 6, 9,
+                                                         11, 12)])
+def test_cuda_flash_bwd_pv32_equals_the_plain_f32_pv(cuda, dtype, case):
+    """The backward's f32 p.v variant against the autograd gradient of
+    the plain attention with an f32 p.v (``_grad_check``), counted in
+    ``launches_pv32``; the default variant's gradient misses the f32
+    limit of the same check. In bf16, where the default passes those
+    limits too, both are held to the f32 p.v gradient of the same bf16
+    values in f32 (``_bf16_bwd_pv32_check``): the default must miss
+    it."""
+    from repro_torch.kernels import flash as t_flash
+    q, k, v, dout, kw = _bwd_inputs(cuda, case, dtype)
+    out = t_ref.flash_attention_ref(q, k, v, pv32=True, **kw)
+    before = t_flash.flash_attention_bwd.launches_pv32["bwd_pv32"]
+    got = t_flash.flash_attention_bwd(q, k, v, out, dout, pv32=True, **kw)
+    assert t_flash.flash_attention_bwd.launches_pv32["bwd_pv32"] == before + 1
+    want = t_ref.flash_attention_bwd_ref(q, k, v, out, dout, pv32=True, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        ok, rel = _grad_check(g, w)
+        assert ok, (name, rel)
+    default = t_flash.flash_attention_bwd(q, k, v, out, dout, pv32=False,
+                                          **kw)
+    if dtype == torch.float32:
+        assert not all(_grad_check(g, w)[0] for g, w in zip(default, want))
+    else:
+        want32 = t_ref.flash_attention_bwd_ref(
+            *(x.float() for x in (q, k, v, out, dout)), pv32=True, **kw)
+        print("bf16 bwd pv32", case, _bf16_bwd_pv32_check(got, default,
+                                                          want32))
+
+
+@pytest.mark.cuda
+def test_cuda_perf_opts_off_takes_the_pv32_variants(cuda, monkeypatch):
+    """With ``REPRO_PERF_OPTS=0`` the model's attention
+    (``layers.flash_attention``) launches the f32 p.v variant forward and
+    backward and equals the plain version under the setting; unset, it
+    launches the default ones."""
+    from repro_torch import kernels as t_kernels
+    from repro_torch.kernels import flash as t_flash
+    from repro_torch.models import layers as t_layers
+    q, k, v, dout, kw = _bwd_inputs(cuda, BWD_CASES[0], torch.float32)
+    monkeypatch.setenv("REPRO_PERF_OPTS", "0")
+    assert not t_layers.perf_opts_enabled()
+    t_kernels.reset_launch_counts()
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = t_layers.flash_attention(*leaves, **kw)
+    out.backward(dout)
+    assert t_flash.flash_attention_fused.launches_pv32["tc_f32_pv32"] == 1
+    assert t_flash.flash_attention_bwd.launches_pv32["bwd_pv32"] == 1
+    assert _rel_l2(out.detach(), t_ref.flash_attention_ref(q, k, v, **kw)) \
+        <= PV32_REL_L2
+    monkeypatch.delenv("REPRO_PERF_OPTS")
+    t_kernels.reset_launch_counts()
+    t_layers.flash_attention(q, k, v, **kw)
+    assert t_flash.flash_attention_fused.launches_by_route["tc_f32"] == 1
+    assert set(t_flash.flash_attention_fused.launches_pv32.values()) == {0}
+
+
+# ------------------------------------------------- the executable checkers
+
+CHECKER_KERNELS = {
+    "rounds_checks": ("bitonic_sort", "coalesce", "fused_sort_pack",
+                      "zero_skip_encode", "zero_skip_decode", "pack"),
+    "spmd_checks": ("bitonic_sort", "coalesce")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("module", sorted(CHECKER_KERNELS))
+def test_cuda_checkers_pass_on_the_card(cuda, module):
+    """``repro_torch.testing.<module>.run`` on the card: every check
+    passes, under the names of the CPU run, and the I/O kernels the
+    checks reach launched."""
+    import importlib
+    import io
+    from repro_torch import kernels as t_kernels
+    mod = importlib.import_module(f"repro_torch.testing.{module}")
+    t_kernels.reset_launch_counts()
+    checks = mod.run(cuda, out=io.StringIO())
+    counts = t_kernels.launch_counts()
+    assert checks.names and not checks.failures, checks.failures[:20]
+    for name in CHECKER_KERNELS[module]:
+        assert counts[name] > 0, (name, counts)
+    assert checks.names == mod.run("cpu", out=io.StringIO()).names

@@ -43,6 +43,37 @@ def test_no_jax_or_reference_import(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
 
 
+EXAMPLES = sorted((PORT.parents[1] / "examples").glob("torch_*.py"))
+
+
+def test_port_side_examples_and_checkers_are_scanned():
+    assert [p.name for p in EXAMPLES] == [
+        "torch_checkpoint_restart.py", "torch_quickstart.py",
+        "torch_serve_batched.py", "torch_train_small_lm.py"]
+    assert {p.name for p in PORT_FILES if p.parent.name == "testing"} == {
+        "__init__.py", "rounds_checks.py", "spmd_checks.py"}
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_no_jax_or_reference_import_in_port_examples(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_importing_the_checkers_loads_neither_jax_nor_repro():
+    code = ("import sys, repro_torch.testing.rounds_checks, "
+            "repro_torch.testing.spmd_checks; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code],
+                          env={"PYTHONPATH": str(PORT.parent),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.core, repro_torch.kernels.ops, "
             "repro_torch.kernels.ref, repro_torch.io_patterns.generators, "
