@@ -1154,15 +1154,9 @@ def _union_us(spans) -> float:
     return total
 
 
-# round-engine steps timed by CUDA events in the profiled runs: the
-# exchange and drain of every write round (_run_rounds' closures) and,
-# inside them, the routing helpers and kernel wrappers they call; a read
-# has no exchange/drain pair, only its index set-up (repeat_index) and
-# the rle wrappers inside its fetch
-STEPS = {"repro_torch.core.rounds": ("_compact_active", "repack_sorted",
-                                     "bucket_by_dest", "flatten_buckets",
-                                     "sort_with", "_a2a", "repeat_index"),
-         "repro_torch.kernels.ops": ("sort_requests_with", "coalesce",
+# kernel wrappers timed by CUDA events in the profiled runs; the round
+# engine's own steps come from its spans (repro_torch.trace) in the trace
+STEPS = {"repro_torch.kernels.ops": ("sort_requests_with", "coalesce",
                                      "fused_drain_pack",
                                      "rle_zero_skip_encode",
                                      "rle_zero_skip_decode")}
@@ -1178,13 +1172,12 @@ PORT_KERNELS = ("sort_blocks_kernel", "sort_merge_kernel",
 
 @contextlib.contextmanager
 def step_timers(torch, totals):
-    """Wrap the round engine's steps so that each call records a CUDA
-    event before and after it; on exit, ``totals[step]`` holds the
+    """Wrap the kernel wrappers of ``STEPS`` so that each call records a
+    CUDA event before and after it; on exit, ``totals[step]`` holds the
     summed event time (ms) and the call count. The stream is one queue
     that the host keeps full (the idle share is small), so an event
     pair spans the device time of the work enqueued between them."""
     import importlib
-    rounds = importlib.import_module("repro_torch.core.rounds")
     spans, saved = {}, []
 
     def timed(name, fn):
@@ -1198,12 +1191,6 @@ def step_timers(torch, totals):
             return out
         return run
 
-    def run_rounds(n, buf, exchange, drain, depth, codec_state=()):
-        return saved[0][2](n, buf, timed("exchange", exchange),
-                           timed("drain", drain), depth, codec_state)
-
-    saved.append((rounds, "_run_rounds", rounds._run_rounds))
-    rounds._run_rounds = run_rounds
     for mod_name, names in STEPS.items():
         mod = importlib.import_module(mod_name)
         for name in names:
@@ -1224,9 +1211,10 @@ def profile_write(torch, write, inputs, top=10):
     """One write under torch.profiler: wall time, device busy time (the
     union of the spans of every kernel, copy and fill on the card), the
     idle share, the launches the host made wait on a full command queue,
-    the port's kernels' device time, the device time of each round-engine
-    step (``step_timers``) and the PyTorch operators whose kernels took
-    the most device time."""
+    the port's kernels' device time, the event time of each kernel
+    wrapper (``step_timers``), the calls and device time (children
+    included) of each of the program's spans (``repro_torch.trace``) and
+    the PyTorch operators whose kernels took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     steps = {}
@@ -1246,7 +1234,12 @@ def profile_write(torch, write, inputs, top=10):
             stalls[0] += 1
             stalls[1] += us
             continue
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type == DeviceType.CPU and e.name.startswith(
+                "repro_torch."):
+            step = steps.setdefault(e.name, {"ms": 0.0, "calls": 0})
+            step["ms"] += e.device_time_total / 1e3
+            step["calls"] += 1
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
         spans.append((e.time_range.start, e.time_range.end))
         for k in PORT_KERNELS:

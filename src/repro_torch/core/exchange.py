@@ -15,10 +15,12 @@ identity depend on them.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core._tensor import (bits_of, exclusive_cumsum, repeat_index,
                                       scatter_new)
 from repro_torch.core.requests import PAD_OFFSET, RequestList
@@ -68,6 +70,7 @@ def bucket_by_dest(r: RequestList, starts: torch.Tensor,
     lead = r.offsets.shape[:-1]
     cap = r.capacity
     in_dcap = data.shape[-1]
+    trace.count("route_slots", math.prod(lead) * in_dcap)
     dev = r.offsets.device
     valid = r.valid_mask()
     d = torch.where(valid, dest.to(torch.int64), n_dest)   # invalid -> sink
@@ -158,6 +161,8 @@ def repack_sorted(r_sorted: RequestList, starts: torch.Tensor,
     occupies one contiguous span — which is why TAM's local aggregators
     can forward coalesced metadata with repacked data.
     """
+    trace.count("route_slots",
+                math.prod(r_sorted.lengths.shape[:-1]) * out_cap)
     lengths = r_sorted.lengths.to(torch.int64)
     total = lengths.sum(dim=-1, keepdim=True)
     eidx = torch.arange(out_cap, device=lengths.device)

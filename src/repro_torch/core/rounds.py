@@ -55,6 +55,7 @@ import math
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import coalesce as co
 from repro_torch.core import codec as codec_mod
 from repro_torch.core import placement as placement_mod
@@ -162,7 +163,9 @@ def _a2a(x: torch.Tensor) -> torch.Tensor:
 
 def _send(parts, n_nodes: int, group: int):
     """Each of the sender-major ``[N * G, n_dest, ...]`` parts through
-    :func:`_a2a`."""
+    :func:`_a2a`, counted in ``slow_hop_bytes``."""
+    trace.count("slow_hop_bytes",
+                sum(x.numel() * x.element_size() for x in parts))
     return tuple(_a2a(x.reshape(n_nodes, group, *x.shape[1:]))
                  for x in parts)
 
@@ -233,14 +236,17 @@ def _run_rounds(n_rounds: int, buf: torch.Tensor, exchange, drain,
     ring = []
     cst = codec_state
     for t in range(n_rounds):
-        rx, ex, cst = exchange(t, cst)
+        with trace.span("repro_torch.exchange"):
+            rx, ex, cst = exchange(t, cst)
         ex_acc = add(ex_acc, ex)
         ring.append(rx)
         if len(ring) == d:
-            buf, dr = drain(t - (d - 1), buf, ring.pop(0))
+            with trace.span("repro_torch.drain"):
+                buf, dr = drain(t - (d - 1), buf, ring.pop(0))
             dr_acc = add(dr_acc, dr)
     for j, rx in enumerate(ring):                # epilogue: drain the ring
-        buf, dr = drain(n_rounds - len(ring) + j, buf, rx)
+        with trace.span("repro_torch.drain"):
+            buf, dr = drain(n_rounds - len(ring) + j, buf, rx)
         dr_acc = add(dr_acc, dr)
     return buf, ex_acc, dr_acc
 
@@ -285,17 +291,22 @@ def exchange_rounds_write(sched: RoundScheduler, dims: tuple[int, int, int],
         data.device, fused=fused)
 
     def exchange(t, cst):
-        act_r, act_starts, act_dest = _compact_active(
-            split, s_starts, dest, live & (window == t))
-        act_data = repack_sorted(act_r, act_starts, data, data_cap)
-        b = bucket_by_dest(act_r, co.request_starts(act_r), act_data,
-                           act_dest, n_dest, round_req_cap, round_data_cap)
+        with trace.span("repro_torch.select"):
+            act_r, act_starts, act_dest = _compact_active(
+                split, s_starts, dest, live & (window == t))
+        with trace.span("repro_torch.route"):
+            act_data = repack_sorted(act_r, act_starts, data, data_cap)
+        with trace.span("repro_torch.bucket"):
+            b = bucket_by_dest(act_r, co.request_starts(act_r), act_data,
+                               act_dest, n_dest, round_req_cap,
+                               round_data_cap)
         del act_data
         meta = (b.offsets, b.lengths, b.counts)
         stats = (b.dropped_requests, b.dropped_elems)
-        wire, cst = enc(b.data, cst)
-        del b                        # the payload buckets are encoded
-        rx = _send(meta, n_nodes, group) + _send(wire, n_nodes, group)
+        with trace.span("repro_torch.send"):
+            wire, cst = enc(b.data, cst)
+            del b                    # the payload buckets are encoded
+            rx = _send(meta, n_nodes, group) + _send(wire, n_nodes, group)
         return rx, stats, cst
 
     drain = _make_drain(base0, cb, data.dtype, fused, dec)
@@ -361,48 +372,57 @@ def exchange_rounds_write_tam(sched: RoundScheduler,
 
     def exchange(t, cst):
         # ---- stage 1: window-bounded intra-node aggregation ---------
-        act_r, act_starts, _ = _compact_active(split, s_starts, dest0,
-                                               live & (window == t))
-        drop_rank_r = (act_r.count - rcap).clamp(min=0)
-        drop_rank_e = torch.where(idx >= rcap, act_r.lengths, 0).sum(
-            dim=-1, dtype=torch.int32)
-        win_r = RequestList(act_r.offsets[:, :rcap], act_r.lengths[:, :rcap],
-                            act_r.count.clamp(max=rcap))
-        drop_rank_e = drop_rank_e + (
-            win_r.lengths.sum(dim=-1, dtype=torch.int32) - rdcap).clamp(min=0)
-        win_data = repack_sorted(win_r, act_starts[:, :rcap], data, rdcap)
-        # all_gather over lmem: one row per (node, lagg) group
-        merged, starts_m, data_flat = flatten_buckets(
-            win_r.offsets.reshape(n_groups, n_lmem, rcap),
-            win_r.lengths.reshape(n_groups, n_lmem, rcap),
-            win_r.count.reshape(n_groups, n_lmem),
-            win_data.reshape(n_groups, n_lmem, rdcap))
-        del win_data
-        if use_kernels:
-            from repro_torch.kernels import ops as kops
-            sorted_r, starts_s = kops.sort_requests_with(merged, starts_m)
-            packed = repack_sorted(sorted_r, starts_s, data_flat, m_cap)
-            coal = kops.coalesce(sorted_r)
-        else:
-            sorted_r, starts_s = sort_with(merged, starts_m)
-            packed = repack_sorted(sorted_r, starts_s, data_flat, m_cap)
-            coal = co.coalesce_sorted(sorted_r)
-        del data_flat
-        ccap = min(coalesce_cap or coal.capacity, coal.capacity)
-        drop_agg_r = (coal.count - ccap).clamp(min=0)
-        agg = RequestList(coal.offsets[:, :ccap], coal.lengths[:, :ccap],
-                          coal.count.clamp(max=ccap))
-        # a coalesced run can escape its window only when cb == dl:
-        # re-split at the domain boundary so each piece has one owner
-        agg = split_at_stripes(agg, dl, m_cap // dl + 2)
+        with trace.span("repro_torch.select"):
+            act_r, act_starts, _ = _compact_active(split, s_starts, dest0,
+                                                   live & (window == t))
+            drop_rank_r = (act_r.count - rcap).clamp(min=0)
+            drop_rank_e = torch.where(idx >= rcap, act_r.lengths, 0).sum(
+                dim=-1, dtype=torch.int32)
+            win_r = RequestList(act_r.offsets[:, :rcap],
+                                act_r.lengths[:, :rcap],
+                                act_r.count.clamp(max=rcap))
+            drop_rank_e = drop_rank_e + (
+                win_r.lengths.sum(dim=-1, dtype=torch.int32)
+                - rdcap).clamp(min=0)
+        with trace.span("repro_torch.route"):
+            win_data = repack_sorted(win_r, act_starts[:, :rcap], data,
+                                     rdcap)
+        with trace.span("repro_torch.intranode"):
+            # all_gather over lmem: one row per (node, lagg) group
+            merged, starts_m, data_flat = flatten_buckets(
+                win_r.offsets.reshape(n_groups, n_lmem, rcap),
+                win_r.lengths.reshape(n_groups, n_lmem, rcap),
+                win_r.count.reshape(n_groups, n_lmem),
+                win_data.reshape(n_groups, n_lmem, rdcap))
+            del win_data
+            if use_kernels:
+                from repro_torch.kernels import ops as kops
+                sorted_r, starts_s = kops.sort_requests_with(merged,
+                                                             starts_m)
+                packed = repack_sorted(sorted_r, starts_s, data_flat, m_cap)
+                coal = kops.coalesce(sorted_r)
+            else:
+                sorted_r, starts_s = sort_with(merged, starts_m)
+                packed = repack_sorted(sorted_r, starts_s, data_flat, m_cap)
+                coal = co.coalesce_sorted(sorted_r)
+            del data_flat
+            ccap = min(coalesce_cap or coal.capacity, coal.capacity)
+            drop_agg_r = (coal.count - ccap).clamp(min=0)
+            agg = RequestList(coal.offsets[:, :ccap], coal.lengths[:, :ccap],
+                              coal.count.clamp(max=ccap))
+            # a coalesced run can escape its window only when cb == dl:
+            # re-split at the domain boundary so each piece has one owner
+            agg = split_at_stripes(agg, dl, m_cap // dl + 2)
         # ---- stage 2: slow-axis exchange of the coalesced window ----
-        dest = to_slot(agg.offsets.to(torch.int64) // dl)
-        b = bucket_by_dest(agg, co.request_starts(agg), packed, dest,
-                           n_dest, min(agg.capacity, cb), min(m_cap, cb))
+        with trace.span("repro_torch.bucket"):
+            dest = to_slot(agg.offsets.to(torch.int64) // dl)
+            b = bucket_by_dest(agg, co.request_starts(agg), packed, dest,
+                               n_dest, min(agg.capacity, cb), min(m_cap, cb))
         del packed
-        wire, cst = enc(b.data, cst)
-        rx = (_send((b.offsets, b.lengths, b.counts), n_nodes, n_lagg)
-              + _send(wire, n_nodes, n_lagg))
+        with trace.span("repro_torch.send"):
+            wire, cst = enc(b.data, cst)
+            rx = (_send((b.offsets, b.lengths, b.counts), n_nodes, n_lagg)
+                  + _send(wire, n_nodes, n_lagg))
         return rx, (drop_rank_r, drop_rank_e,
                     b.dropped_requests + drop_agg_r, b.dropped_elems,
                     merged.count, agg.count), cst
@@ -491,13 +511,16 @@ def exchange_rounds_read(sched: RoundScheduler, r: RequestList,
                                dev, fused=kernel_fusion == "fused_round")
 
     def fetch(t):
-        win = file_shard[:, t * cb:(t + 1) * cb].contiguous()
-        parts, _ = enc(win, ())                 # no residual to carry
-        return dec(parts).to(file_shard.dtype).reshape(-1)
+        with trace.span("repro_torch.fetch"):
+            win = file_shard[:, t * cb:(t + 1) * cb].contiguous()
+            parts, _ = enc(win, ())             # no residual to carry
+            return dec(parts).to(file_shard.dtype).reshape(-1)
 
     def scatter(t, out, allw):
-        active = live & (wround == t)
-        return torch.where(active, allw[src], out)
+        trace.count("route_slots", out.numel())
+        with trace.span("repro_torch.scatter"):
+            active = live & (wround == t)
+            return torch.where(active, allw[src], out)
 
     out = torch.zeros((r.offsets.shape[0], data_cap),
                       dtype=file_shard.dtype, device=dev)

@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch._device import resolve_device
 from repro_torch.core import coalesce as co
 from repro_torch.core import rounds
@@ -148,12 +149,13 @@ def make_spmd_executor(mesh: RankMesh, plan: IOPlan,
             f"axis {node!r} has size {mesh.shape[node]}")
     dev = resolve_device(device)
     dims = mesh.dims
+    name = f"repro_torch.{plan.direction}"
 
     def run(offsets, lengths, count, data):
-        args = [torch.as_tensor(x, device=dev)
-                for x in (offsets, lengths, count, data)]
-        args[:3] = [a.to(torch.int32) for a in args[:3]]
-        with torch.no_grad():
+        with trace.span(name), torch.no_grad():
+            args = [torch.as_tensor(x, device=dev)
+                    for x in (offsets, lengths, count, data)]
+            args[:3] = [a.to(torch.int32) for a in args[:3]]
             if plan.direction == "read":
                 return _read(plan, mesh.size, *args)
             return _write(plan, dims, use_kernels, *args)
