@@ -10,8 +10,10 @@ words and do no arithmetic on them; for attention every element within
 5e-3 (f32) or 8e-3 (bf16, one bf16 ulp) and a relative L2 distance of at
 most 1e-2, with planted faults shown to fail that limit; the zero-skip
 pair also at 1-, 2- and 8-byte elements; coalesce also on rows whose
-entries are all live and on rows whose int32 ends wrap past 2^31 - 1),
-checks small writes and reads
+entries are all live and on rows whose int32 ends wrap past 2^31 - 1;
+``route_spans`` on the spans of one write of ``portbench``'s class D
+BT-IO cell, at its three routing widths, also against the torch body it
+replaces), checks small writes and reads
 with every slow-hop codec on the card against the CPU (rle also on
 bfloat16 and uint8 payloads), then drives the main paths:
 
@@ -118,7 +120,8 @@ Every phase prints one JSON line; any failed check raises, and the run
 exits non-zero. The line before the last lists every kernel with its
 launches on the main paths, its time, its bound and the plain and library
 times (``pack`` at its largest shape, in a training save, with its
-host-path and drain-window cases beside; for attention with the
+host-path and drain-window cases beside; ``route_spans`` at stage 2's
+buckets, with its other two widths beside; for attention with the
 softcap, the library is
 ``flex_attention``, compiled by ``torch.compile`` with its caches under
 ``build/``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -159,6 +162,8 @@ REPLACES = {
     "flash_attention_fused": "src/repro/kernels/flash.py:92",
     "flash_attention_bwd": "XLA autodiff of models.layers.flash_attention "
                            "(no Pallas kernel)",
+    "route_spans": "jnp element routing of src/repro/core/exchange.py "
+                   "(repack_sorted, bucket_by_dest; no Pallas kernel)",
 }
 SOURCES = {
     "bitonic_sort": "src/repro_torch/kernels/csrc/sort.cu",
@@ -169,6 +174,7 @@ SOURCES = {
     "pack": "src/repro_torch/kernels/csrc/pack.cu",
     "flash_attention_fused": "src/repro_torch/kernels/csrc/flash.cu",
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+    "route_spans": "src/repro_torch/kernels/csrc/route_spans.cu",
 }
 TABLE = (   # every pallas_call of the reference, by def line
     ("fused_sort_pack", "src/repro/kernels/fused_round.py:64", "ported"),
@@ -180,6 +186,8 @@ TABLE = (   # every pallas_call of the reference, by def line
     ("flash_attention_fused", "src/repro/kernels/flash.py:92", "ported"),
     ("flash_attention_bwd", REPLACES["flash_attention_bwd"],
      "new: no TPU counterpart (the gradient of the ported attention)"),
+    ("route_spans", REPLACES["route_spans"],
+     "new: no TPU counterpart (the round engine's element routing)"),
 )
 FLASH_SOURCES = ["src/repro_torch/kernels/csrc/flash.cu",
                  "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -968,6 +976,120 @@ def phase_pack(torch, dev, reps):
     return rec
 
 
+def phase_route_spans(torch, dev, reps):
+    """``ops.route_spans`` at the TAM write's three routing widths, on the
+    spans of one write of ``portbench``'s ``btio.tam.write`` cell (NPB
+    BT-IO class D over 16 x 64 ranks, f64): the first call of each of the
+    round engine's span copies is recorded, each rank's window
+    (``repack_sorted``, [1024, 332760]), stage 1's repack ([16,
+    21296640]) and stage 2's buckets ([16, 21296640] into [16, 16 x
+    2122416]). On each call's spans the kernel must equal its plain
+    version (``ref.route_spans_ref``) bit for bit, and the span path
+    (span list and kernel) the torch body it replaces on the card.
+    ``ms`` is the kernel, ``path_ms`` the span path, ``plain_ms`` the
+    plain version, ``torch_ms`` the torch body; ``bound_ms`` the bytes
+    the call must move (its spans, each covered payload element read
+    once, every output element written once). Returns the buckets' case,
+    the largest, with the others under ``cases``."""
+    from portbench import harness
+    from repro_torch.core import exchange as ex
+    from repro_torch.kernels import ops, ref
+    free_device(torch, dev)
+    t0 = time.perf_counter()
+    spec = harness.load_spec(ROOT, "btio.tam.write")
+    O, L, C, D, file_len = harness.make_inputs(spec.config, 2147483659, dev)
+    write = harness.make_collective(spec.config, spec.traffic, O, D,
+                                    file_len, dev)
+    calls, spans = {}, {}        # the first call of each kind, by rows
+    saved = (ex._repack_sorted_spans, ex._route_elements_spans,
+             ops.route_spans)
+
+    def repack(r, starts, data, out_cap):
+        calls.setdefault(("repack", data.shape[0]),
+                         (r, starts, data, out_cap))
+        return saved[0](r, starts, data, out_cap)
+
+    def bucket(*a):
+        calls.setdefault(("bucket", a[5].shape[0]), a)
+        return saved[1](*a)
+
+    def route(off, n, src, data, out_len):
+        spans.setdefault((off.shape[0], out_len), (off, n, src, data))
+        return saved[2](off, n, src, data, out_len)
+
+    ex._repack_sorted_spans, ex._route_elements_spans = repack, bucket
+    ops.route_spans = route
+    try:
+        write(O, L, C, D)
+    finally:
+        (ex._repack_sorted_spans, ex._route_elements_spans,
+         ops.route_spans) = saved
+    del write, O, L, C, D
+    torch.cuda.synchronize()
+    nodes = spec.config["nodes"]
+    names = {("repack", nodes * spec.config["ranks_per_node"]):
+             "route: each rank's window",
+             ("repack", nodes): "intranode: stage 1's repack",
+             ("bucket", nodes): "bucket: stage 2's buckets"}
+    require(sorted(calls) == sorted(names),
+            f"route_spans: recorded calls {sorted(calls)}")
+    cases = []
+    for key in sorted(calls):
+        a = calls.pop(key)
+        if key[0] == "repack":
+            rows, out_len = a[2].shape[0], a[3]
+
+            def path():
+                return ex._repack_sorted_spans(*a)
+
+            def body():
+                return ex._repack_sorted_torch(*a)
+        else:
+            rows, out_len = a[5].shape[0], a[6] * a[7]
+
+            def path():
+                return ex._route_elements_spans(*a)[0]
+
+            def body():
+                return ex._route_elements_torch(*a)[0]
+        off, n, src, data = spans[(rows, out_len)]
+        got = bits(torch, ops.route_spans(off, n, src, data, out_len))
+        plain_bad = int((got != bits(torch, ref.route_spans_ref(
+            off, n, src, data, out_len))).sum().item())
+        torch.cuda.empty_cache()
+        body_bad = int((bits(torch, path()).reshape(got.shape)
+                        != bits(torch, body()).reshape(got.shape))
+                       .sum().item())
+        del got
+        torch.cuda.empty_cache()
+        require(plain_bad == 0 == body_bad,
+                f"route_spans {names[key]}: {plain_bad} elements differ "
+                f"from route_spans_ref, {body_bad} from the torch body")
+        item = data.element_size()
+        b, by = bound(3 * off.numel() * 4
+                      + int(n.sum(dtype=torch.int64).item()) * item
+                      + rows * out_len * item, 0)
+        rec = {"call": names[key], "shape": [rows, data.shape[-1]],
+               "out_len": out_len, "dtype": str(data.dtype).split(".")[-1],
+               "max_abs_err": 0,
+               "ms": time_ms(torch, lambda: ops.route_spans(
+                   off, n, src, data, out_len), reps),
+               "path_ms": time_ms(torch, path, reps),
+               "plain_ms": time_ms(torch, lambda: ref.route_spans_ref(
+                   off, n, src, data, out_len), 3),
+               "bound_ms": b, "bound_by": by, "library_ms": None}
+        torch.cuda.empty_cache()
+        rec["torch_ms"] = time_ms(torch, body, 3)
+        del a, path, body
+        torch.cuda.empty_cache()
+        emit({"phase": "kernel", "kernel": "route_spans", **rec})
+        cases.append(rec)
+    del spans
+    free_device(torch, dev)
+    emit({"phase": "route_spans", "seconds": time.perf_counter() - t0})
+    return {**cases[0], "cases": cases}
+
+
 def phase_small(torch, dev):
     """A small BTIO write on the card equals the same write on the CPU:
     file bytes and every stats key, both methods, fused and unfused."""
@@ -1162,6 +1284,7 @@ STEPS = {"repro_torch.kernels.ops": ("sort_requests_with", "coalesce",
                                      "rle_zero_skip_decode")}
 PORT_KERNELS = ("sort_blocks_kernel", "sort_merge_kernel",
                 "coalesce_cluster_kernel", "pack_tiles_kernel",
+                "route_spans_kernel",
                 "zero_skip_encode_rows_kernel",
                 "zero_skip_encode_chunks_kernel", "zero_skip_zero_kernel",
                 "zero_skip_scatter_kernel", "flash_tc_f32_kernel",
@@ -4348,7 +4471,7 @@ def phase_roofline(torch, dev, smi=None):
 # ---------------------------------------------------------------------------
 
 IO_KERNELS = ("bitonic_sort", "coalesce", "fused_sort_pack",
-              "zero_skip_encode", "zero_skip_decode", "pack")
+              "zero_skip_encode", "zero_skip_decode", "pack", "route_spans")
 
 
 def phase_checks(torch, dev):
@@ -4726,6 +4849,7 @@ def main() -> int:
 
     measured = phase_kernels(torch, dev, REPS)
     measured["pack"] = phase_pack(torch, dev, REPS)
+    measured["route_spans"] = phase_route_spans(torch, dev, REPS)
     measured["flash_attention_fused"] = phase_flash(torch, dev, REPS)
     phase_small(torch, dev)
     phase_small_codecs(torch, dev)

@@ -12,6 +12,17 @@ Every function works on the last axis and treats leading axes as a
 batch (one row per rank or per local-aggregator group). Capacities and
 drop accounting are the reference's, because the drop stats and byte
 identity depend on them.
+
+The payload's element routing (:func:`repack_sorted`, and the element
+half of :func:`bucket_by_dest`) has two bodies that agree bit for bit.
+On CUDA tensors each request becomes one span (where it lands, how many
+elements, where they start), computed on the ``[..., cap]`` request
+metadata, and ``kernels.ops.route_spans`` copies the spans into the
+padded rows; no index the size of the payload is built, and a row the
+kernel cannot take (positions past int32, elements of another width)
+raises. On CPU tensors the torch body walks every padded slot with the
+reference's jnp idioms. The tensors' device alone decides
+(:func:`_routes_on_kernel`).
 """
 from __future__ import annotations
 
@@ -66,6 +77,12 @@ def bucket_by_dest(r: RequestList, starts: torch.Tensor,
     starts: payload start of each request inside ``data``.
     data:   ``[..., in_dcap]`` payload.
     dest:   destination id in [0, n_dest) per request.
+
+    On CUDA tensors ``starts`` must be each valid request's packed
+    position, ``coalesce.request_starts(r)`` (as every caller passes):
+    the kernel copies spans that are sorted and disjoint only then. Other
+    starts may send two requests' elements to one slot, where the torch
+    body's scatter keeps either.
     """
     lead = r.offsets.shape[:-1]
     cap = r.capacity
@@ -103,6 +120,34 @@ def bucket_by_dest(r: RequestList, starts: torch.Tensor,
         torch.zeros(*lead, n_dest + 1, dtype=torch.int64,
                     device=dev).scatter_add_(-1, d, lens_valid))
     dstart_grouped = gpre - elem_grp_start.gather(-1, gd)
+    route = _route_elements_torch
+    if _routes_on_kernel(data):
+        trace.count("route_kernel_slots", math.prod(lead) * in_dcap)
+        route = _route_elements_spans
+    out_data, dropped_elems = route(d, order, dstart_grouped, lens_valid,
+                                    starts, data, n_dest, data_cap)
+
+    return Buckets(out_off.view(*lead, n_dest, req_cap),
+                   out_len.view(*lead, n_dest, req_cap),
+                   counts, out_data, dropped_req, dropped_elems)
+
+
+def _routes_on_kernel(data: torch.Tensor) -> bool:
+    """Whether a routing call copies spans with ``kernels.ops.route_spans``
+    (every payload off the CPU) or walks every slot with the torch body
+    (CPU payloads)."""
+    return data.device.type != "cpu"
+
+
+def _route_elements_torch(d, order, dstart_grouped, lens_valid, starts,
+                          data, n_dest, data_cap):
+    """``bucket_by_dest``'s element routing as the reference writes it:
+    every payload slot finds its request (``repeat_index``), its bucket
+    position, and is scattered there. Returns ``(data [..., n_dest,
+    data_cap], dropped_elems)``."""
+    lead, cap = d.shape[:-1], d.shape[-1]
+    in_dcap = data.shape[-1]
+    dev = d.device
     req_dstart = torch.zeros(*lead, cap, dtype=torch.int64,
                              device=dev).scatter_(-1, order, dstart_grouped)
 
@@ -121,11 +166,48 @@ def bucket_by_dest(r: RequestList, starts: torch.Tensor,
     del e_dest, e_pos
     out_data = scatter_new(n_dest * data_cap, 0, e_scatter, data)
     dropped_elems = (e_routed & ~e_ok).sum(dim=-1).to(torch.int32)
+    return out_data.view(*lead, n_dest, data_cap), dropped_elems
 
-    return Buckets(out_off.view(*lead, n_dest, req_cap),
-                   out_len.view(*lead, n_dest, req_cap),
-                   counts, out_data.view(*lead, n_dest, data_cap),
-                   dropped_req, dropped_elems)
+
+def _route_elements_spans(d, order, dstart_grouped, lens_valid, starts,
+                          data, n_dest, data_cap):
+    """``_route_elements_torch`` as one span a request, copied by
+    ``kernels.ops.route_spans``.
+
+    Element e of the payload belongs to the valid request i with
+    ``cum_i <= e < cum_i + len_i`` (``cum``: the exclusive prefix of the
+    valid lengths) and goes to position ``e + dstart_i - starts_i`` of
+    bucket ``d_i``; it is kept where e lies inside the payload and the
+    position inside the bucket. So request i's kept elements are one
+    range of e, and each request's dropped elements are its routed ones
+    less that range. The spans are taken in the bucketing's grouped order
+    (destination-major, offset order inside), in which they are sorted
+    and disjoint whenever each valid request's payload starts at its
+    packed position (``starts`` = ``coalesce.request_starts``, as every
+    caller passes). Returns ``(data [..., n_dest, data_cap],
+    dropped_elems)``."""
+    from repro_torch.kernels import ops as kops
+    lead = d.shape[:-1]
+    in_dcap = data.shape[-1]
+    gd = d.gather(-1, order)
+    routed = gd < n_dest
+    cum = (torch.cumsum(lens_valid, dim=-1) - lens_valid).gather(-1, order)
+    n = torch.where(routed, lens_valid.gather(-1, order), 0)
+    shift = dstart_grouped - starts.to(torch.int64).gather(-1, order)
+    end = (cum + n).clamp(max=in_dcap)       # routed elements: [cum, end)
+    lo = torch.maximum(cum, -shift)
+    kept = (torch.minimum(end, data_cap - shift) - lo).clamp(min=0)
+    dropped_elems = ((end - cum).clamp(min=0) - kept).sum(
+        dim=-1).to(torch.int32)
+    if in_dcap == 0:       # no element to route, none dropped
+        return (data.new_zeros(*lead, n_dest, data_cap),
+                dropped_elems)
+    at = torch.where(routed, gd * data_cap + (lo + shift).clamp(0, data_cap),
+                     n_dest * data_cap)
+    out = kops.route_spans(at.to(torch.int32), kept.to(torch.int32),
+                           lo.clamp(0, in_dcap).to(torch.int32), data,
+                           n_dest * data_cap)
+    return out.view(*lead, n_dest, data_cap), dropped_elems
 
 
 def flatten_buckets(offsets: torch.Tensor, lengths: torch.Tensor,
@@ -161,8 +243,19 @@ def repack_sorted(r_sorted: RequestList, starts: torch.Tensor,
     occupies one contiguous span — which is why TAM's local aggregators
     can forward coalesced metadata with repacked data.
     """
-    trace.count("route_slots",
-                math.prod(r_sorted.lengths.shape[:-1]) * out_cap)
+    slots = math.prod(r_sorted.lengths.shape[:-1]) * out_cap
+    trace.count("route_slots", slots)
+    if _routes_on_kernel(data_flat):
+        trace.count("route_kernel_slots", slots)
+        return _repack_sorted_spans(r_sorted, starts, data_flat, out_cap)
+    return _repack_sorted_torch(r_sorted, starts, data_flat, out_cap)
+
+
+def _repack_sorted_torch(r_sorted: RequestList, starts: torch.Tensor,
+                         data_flat: torch.Tensor,
+                         out_cap: int) -> torch.Tensor:
+    """``repack_sorted`` as the reference writes it: every output slot
+    finds its request (``repeat_index``) and gathers its element."""
     lengths = r_sorted.lengths.to(torch.int64)
     total = lengths.sum(dim=-1, keepdim=True)
     eidx = torch.arange(out_cap, device=lengths.device)
@@ -176,3 +269,23 @@ def repack_sorted(r_sorted: RequestList, starts: torch.Tensor,
     return torch.where(eidx < total, vals,
                        torch.zeros((), dtype=data_flat.dtype,
                                    device=data_flat.device))
+
+
+def _repack_sorted_spans(r_sorted: RequestList, starts: torch.Tensor,
+                         data_flat: torch.Tensor,
+                         out_cap: int) -> torch.Tensor:
+    """``_repack_sorted_torch`` as one span a request, copied by
+    ``kernels.ops.route_spans``: request i's elements, from ``starts[i]``
+    (clamped into the row, element by element, as the torch body
+    clamps), land at the exclusive prefix sum of the lengths, cut at
+    ``out_cap``; the rest of the row is 0. Starts of another type are
+    clamped into ``[-2^31, dcap]`` first, which changes no clamped
+    element: a span is shorter than 2^31."""
+    from repro_torch.kernels import ops as kops
+    lengths = r_sorted.lengths.to(torch.int64)
+    at = (torch.cumsum(lengths, dim=-1) - lengths).clamp_(max=out_cap)
+    n = torch.minimum(lengths, out_cap - at)
+    if starts.dtype != torch.int32:
+        starts = starts.clamp(-2**31, data_flat.shape[-1]).to(torch.int32)
+    return kops.route_spans(at.to(torch.int32), n.to(torch.int32), starts,
+                            data_flat, out_cap)

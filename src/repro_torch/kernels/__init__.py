@@ -10,6 +10,9 @@
   element width of 1, 2, 4 and 8 bytes (CUDA);
 * ``pack.pack`` — gather-form pack of sorted requests into a window
   (CUDA, the drain's tile kernel without sort and mask);
+* ``pack.route_spans`` — the round engine's element routing: batched
+  rows of sorted, disjoint spans copied into padded rows (CUDA, the same
+  tile walk at base 0 with a ragged last tile);
 * ``flash.flash_attention_fused`` — online-softmax GQA attention with
   causal, window, softcap and kv_len masks, the serving path's
   attention (CUDA, three routes: ``tc_prefill`` and ``split_decode`` for
@@ -39,8 +42,8 @@ from repro_torch.kernels import pack as _pack_module   # keeps .pack a module
 from repro_torch.kernels.sort import bitonic_sort
 
 KERNELS = (bitonic_sort, coalesce, fused_sort_pack, zero_skip_encode,
-           zero_skip_decode, _pack_module.pack, flash_attention_fused,
-           flash_attention_bwd)
+           zero_skip_decode, _pack_module.pack, _pack_module.route_spans,
+           flash_attention_fused, flash_attention_bwd)
 
 
 def launch_counts() -> dict[str, int]:

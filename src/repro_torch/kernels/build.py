@@ -25,10 +25,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sort.cu", "coalesce_kernel.cu", "fused_round.cu",
-           "zero_skip.cu", "pack.cu", "flash.cu", "flash_decode.cu",
-           "flash_bwd.cu")
-HEADERS = ("common.cuh", "bitonic.cuh", "pack_tiles.cuh", "flash_tiles.cuh",
-           "flash_wgmma.cuh", "flash_mma.cuh")
+           "zero_skip.cu", "pack.cu", "route_spans.cu", "flash.cu",
+           "flash_decode.cu", "flash_bwd.cu")
+HEADERS = ("common.cuh", "bitonic.cuh", "tile_walk.cuh", "pack_tiles.cuh",
+           "flash_tiles.cuh", "flash_wgmma.cuh", "flash_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +45,7 @@ _SIGNATURES = {
     "repro_zero_skip_encode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_zero_skip_decode": (_P, _P, _P, _I, _I, _I, _P),
     "repro_pack": (_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _P),
+    "repro_route_spans": (_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _F, _I, _I, _F, _I, _I, _I, _I, _I, _P),
     "repro_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -136,7 +136,8 @@ coalesce_cluster_kernel(const int* __restrict__ off_in,
   const int t0 = tile * kTile;
   const int tile_len = min(kTile, n - t0);
   const int i0 = t0 + static_cast<int>(threadIdx.x) * kPer;
-  const int cnt = max(0, min(kPer, n - i0));
+  const int left = n - i0;        // entries from my first to the row's end
+  const int cnt = max(0, min(kPer, left));
 
   // ---- the entries beside the tile (device memory, issued first), then
   // the tile once: 16 bytes a load where rows are aligned
@@ -149,7 +150,13 @@ coalesce_cluster_kernel(const int* __restrict__ off_in,
   if (tile_end && t0 + tile_len < n) after_off = off[t0 + tile_len];
   if (threadIdx.x == 0) s_first_end = s_last_end = 0;
   int o[kPer], l[kPer];
-  if (kVec && cnt == kPer) {
+  // The 16-byte loads are chosen on the entries left in the row, not on
+  // cnt == kPer: built by nvcc 12.8 for sm_90a, that test (one VIMNMX with
+  // the min and max above) also sent threads with fewer entries (the
+  // row's last, and those past it) down this path, to read past the row.
+  // What they read was never used, so the results held, but a row whose
+  // buffer ends a mapping faulted.
+  if (kVec && left >= kPer) {
 #pragma unroll
     for (int q = 0; q < kPer; q += 4) {
       const int4 a = *reinterpret_cast<const int4*>(off + i0 + q);

@@ -1,5 +1,6 @@
 // The gather-form pack tile, shared by fused_sort_pack (fused_round.cu)
-// and pack (pack.cu).
+// and pack (pack.cu); its device functions are in tile_walk.cuh, which
+// route_spans (route_spans.cu) walks its tiles with too.
 //
 // Output position p of a window (p = position + base in int32, as the TPU
 // computes iota + tile_start + base) takes r, the last request of the
@@ -40,62 +41,9 @@
 #include <climits>
 #include <cstring>
 
-#include "common.cuh"
+#include "tile_walk.cuh"
 
 namespace {
-
-constexpr int kPackThreads = 256;
-constexpr int kPackItems = repro::kTile / kPackThreads;   // 16 a thread
-
-// Shared-memory index of tile position i, one pad word every 32, so that
-// a thread's 16 consecutive positions and a warp's 32 consecutive ones
-// both fall on distinct banks.
-__device__ __forceinline__ int tile_slot(int i) { return i + (i >> 5); }
-
-// The number of off[0, cap) (sorted) that are <= q, found by the calling
-// warp: each round each lane tests one cut, a ballot keeps the range
-// between the last cut still <= q and the first that is not.
-__device__ __forceinline__ int count_le(const int* __restrict__ off,
-                                        int cap, int q, int lane) {
-  int lo = 0, hi = cap;   // the count lies in [lo, hi]
-  while (lo < hi) {
-    const int step = (hi - lo + 31) / 32;
-    const int i = lo + lane * step;
-    const bool le = i < hi && __ldg(off + i) <= q;
-    const int c = __popc(__ballot_sync(0xffffffffu, le));
-    if (c == 0) {
-      hi = lo;
-    } else {
-      const int next_hi = lo + c * step;
-      lo += (c - 1) * step + 1;
-      hi = next_hi < hi ? next_hi : hi;
-    }
-  }
-  return lo;
-}
-
-// The window (and mask) element of position p from request r.
-template <typename T>
-__device__ __forceinline__ void pack_one(const int* __restrict__ off,
-                                         const int* __restrict__ len,
-                                         const int* __restrict__ st,
-                                         const T* __restrict__ d,
-                                         long long dcap, int p, int r, T one,
-                                         T& v, T& c) {
-  v = T(0);
-  c = T(0);
-  if (r >= 0) {
-    // int32 as on the TPU: p - off[r] wraps
-    const int within = static_cast<int>(
-        static_cast<unsigned>(p) - static_cast<unsigned>(__ldg(off + r)));
-    if (within < __ldg(len + r)) {
-      long long src = static_cast<long long>(__ldg(st + r)) + within;
-      src = src < 0 ? 0 : (src >= dcap ? dcap - 1 : src);
-      v = d[src];
-      c = one;
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kPackThreads)
@@ -153,40 +101,7 @@ pack_tiles_kernel(const int* __restrict__ s_off,
   const int r0 = s_cut[0];
   const int r_end = s_cut[1];
 
-  // 2. heads: the last request of each offset inside the tile
-  for (int i = r0 + 1 + threadIdx.x; i <= r_end; i += kPackThreads) {
-    const int o = __ldg(off + i);
-    if (i == r_end || __ldg(off + i + 1) != o)
-      s_r[tile_slot(o - p_first)] = i;
-  }
-  __syncthreads();
-
-  // 3. inclusive max-scan seeded with r0
-  int h[kPackItems];
-  int run = r0;
-#pragma unroll
-  for (int k = 0; k < kPackItems; ++k) {
-    const int x = s_r[tile_slot(threadIdx.x * kPackItems + k)];
-    run = x > run ? x : run;
-    h[k] = run;
-  }
-  int x = run;
-#pragma unroll
-  for (int dd = 1; dd < 32; dd <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, dd);
-    if (lane >= dd && y > x) x = y;
-  }
-  if (lane == 31) s_warp[warp] = x;
-  int before = __shfl_up_sync(0xffffffffu, x, 1);
-  if (lane == 0) before = r0;
-  __syncthreads();
-  for (int k = 0; k < warp; ++k) before = s_warp[k] > before ? s_warp[k]
-                                                             : before;
-#pragma unroll
-  for (int k = 0; k < kPackItems; ++k)
-    s_r[tile_slot(threadIdx.x * kPackItems + k)] = h[k] > before ? h[k]
-                                                              : before;
-  __syncthreads();
+  tile_requests(off, r0, r_end, p_first, s_r, s_warp, lane, warp);
 
   // 4. the window and the mask, neighbouring threads on neighbouring
   //    positions

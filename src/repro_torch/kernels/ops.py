@@ -43,12 +43,19 @@ def _merge_sorted_blocks(keys: torch.Tensor) -> torch.Tensor:
     b, nb, m = keys.shape
     rank = torch.arange(m, device=keys.device).expand(b, nb, m).clone()
     for other in range(nb):
+        # block ``other`` counted into every earlier block (its entries <
+        # their keys) and every later one (its entries <= their keys), each
+        # side in one search
         seq = keys[:, other].contiguous()
-        for blk in range(nb):
-            if blk == other:
-                continue
-            rank[:, blk] += torch.searchsorted(
-                seq, keys[:, blk].contiguous(), right=other < blk)
+        if other > 0:
+            rank[:, :other] += torch.searchsorted(
+                seq, keys[:, :other].reshape(b, other * m).contiguous()
+            ).view(b, other, m)
+        if other < nb - 1:
+            later = nb - other - 1
+            rank[:, other + 1:] += torch.searchsorted(
+                seq, keys[:, other + 1:].reshape(b, later * m).contiguous(),
+                right=True).view(b, later, m)
     flat_rank = rank.reshape(b, nb * m)
     src = torch.arange(nb * m, device=keys.device).expand(b, nb * m)
     return torch.empty_like(flat_rank).scatter_(1, flat_rank, src)
@@ -179,6 +186,21 @@ def pack(r: RequestList, starts: torch.Tensor, data: torch.Tensor, base,
                         _pad_block(starts, cap, 0), data.contiguous(), base,
                         padded_out)
     return out[:out_len]
+
+
+def route_spans(offsets: torch.Tensor, lengths: torch.Tensor,
+                sources: torch.Tensor, data: torch.Tensor,
+                out_len: int) -> torch.Tensor:
+    """Kernel-backed span copy (``pack.route_spans``) over ``[..., cap]``
+    int32 span lists and ``[..., dcap]`` payload rows, every leading axis
+    a batch of rows; returns ``[..., out_len]``."""
+    lead, cap = offsets.shape[:-1], offsets.shape[-1]
+    out = pack_mod.route_spans(
+        offsets.reshape(-1, cap).contiguous(),
+        lengths.reshape(-1, cap).contiguous(),
+        sources.reshape(-1, cap).contiguous(),
+        data.reshape(-1, data.shape[-1]).contiguous(), out_len)
+    return out.view(*lead, out_len)
 
 
 def fused_drain_pack(r: RequestList, starts: torch.Tensor,

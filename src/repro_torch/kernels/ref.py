@@ -399,6 +399,33 @@ def pack_ref(offsets: torch.Tensor, lengths: torch.Tensor,
                                                        device=data.device))
 
 
+def route_spans_ref(offsets: torch.Tensor, lengths: torch.Tensor,
+                    sources: torch.Tensor, data: torch.Tensor,
+                    out_len: int) -> torch.Tensor:
+    """Span copy of ``[b, cap]`` rows of spans, sorted by offset and
+    disjoint, out of ``[b, dcap]`` payload rows into ``[b, out_len]``:
+    position p takes the last span r with offset <= p and, where
+    ``p - offset[r] < length[r]``, ``data[source[r] + p - offset[r]]``
+    (clipped into the row), else 0, bit for bit — the plain version of
+    ``pack.route_spans``."""
+    b, cap = offsets.shape
+    if cap == 0:
+        return torch.zeros((b, out_len), dtype=data.dtype,
+                           device=data.device)
+    off = offsets.to(torch.int64).contiguous()
+    p = torch.arange(out_len, device=off.device).expand(b, out_len)
+    r = torch.searchsorted(off, p.contiguous(), right=True) - 1
+    r_c = r.clamp(0, cap - 1)
+    within = p - off.gather(1, r_c)
+    covered = (r >= 0) & (within < lengths.to(torch.int64).gather(1, r_c))
+    src = (sources.to(torch.int64).gather(1, r_c) + within).clamp(
+        0, data.shape[1] - 1)
+    bits = bits_of(data)
+    return torch.where(covered, bits.gather(1, src),
+                       torch.zeros((), dtype=bits.dtype,
+                                   device=bits.device)).view(data.dtype)
+
+
 TILE = 4096   # positions a tile of the pack kernels (csrc/pack_tiles.cuh)
 INT32_MAX = (1 << 31) - 1
 
@@ -423,11 +450,13 @@ def pack_tile_walk_ref(s_off: torch.Tensor, s_len: torch.Tensor,
     2^31 - 1 searches per position. Then ``within = p - off[r]`` (int32),
     covered where ``r >= 0`` and ``within < len[r]``, the payload
     ``data[start[r] + within]`` (clipped into the row) and the mask.
-    ``base``: an int or one per row. Returns ``(window, mask)``."""
+    ``base``: an int or one per row. An ``out_len`` that is not a
+    multiple of ``TILE`` ends in a ragged tile whose run ends at the
+    row's last position, as ``route_spans``' kernel walks it (``pack``
+    and ``fused_sort_pack`` take whole tiles). Returns ``(window,
+    mask)``."""
     b, cap = s_off.shape
     dev = s_off.device
-    if out_len % TILE:
-        raise ValueError(f"out_len must be a multiple of {TILE}")
     base = torch.as_tensor(base, dtype=torch.int64, device=dev)
     base = base.reshape(-1).expand(b)[:, None]
     off = s_off.to(torch.int64).contiguous()
@@ -435,18 +464,19 @@ def pack_tile_walk_ref(s_off: torch.Tensor, s_len: torch.Tensor,
     last_of_equal = torch.cat([off[:, 1:] != off[:, :-1],
                                torch.ones((b, 1), dtype=torch.bool,
                                           device=dev)], dim=1)
-    i_tile = torch.arange(TILE, device=dev)
     rs = []
-    for t in range(out_len // TILE):
+    for t in range(-(-out_len // TILE)):
+        n = min(TILE, out_len - t * TILE)                     # ragged last
+        i_tile = torch.arange(n, device=dev)
         p_first = _wrap32(t * TILE + base)                    # [b, 1]
-        p = _wrap32(p_first + i_tile)                         # [b, TILE]
+        p = _wrap32(p_first + i_tile)                         # [b, n]
         r0 = torch.searchsorted(off, p_first, right=True) - 1
-        r_end = torch.searchsorted(off, p_first + TILE - 1, right=True) - 1
+        r_end = torch.searchsorted(off, p_first + n - 1, right=True) - 1
         heads = (idx > r0) & (idx <= r_end) & last_of_equal
-        slot = torch.where(heads, off - p_first, TILE)
-        head = torch.full((b, TILE + 1), -1, dtype=torch.int64, device=dev)
+        slot = torch.where(heads, off - p_first, n)
+        head = torch.full((b, n + 1), -1, dtype=torch.int64, device=dev)
         head.scatter_(1, slot, idx.expand(b, cap))
-        walked = torch.cummax(torch.maximum(head[:, :TILE], r0),
+        walked = torch.cummax(torch.maximum(head[:, :n], r0),
                               dim=1).values
         searched = torch.searchsorted(off, p, right=True) - 1
         wraps = p_first > INT32_MAX - (TILE - 1)

@@ -18,8 +18,12 @@ inside an exchange ``select``, ``route``, ``intranode`` (TAM stage 1),
 ``bucket`` and ``send``, and a read's ``fetch`` / ``scatter``.
 Counters: ``route_slots`` (the element slots that routing walks: rows
 times the padded width of each ``repack_sorted``, each bucketing's
-element routing and each read scatter) and ``slow_hop_bytes`` (the bytes
-of every part sent across the node axis).
+element routing and each read scatter), ``route_kernel_slots`` (the
+part of ``route_slots`` whose calls copied spans with the
+``route_spans`` kernel in place of the per-slot walk: equal to
+``route_slots`` where every write routing call ran on the card, 0 on the
+CPU and in a read) and ``slow_hop_bytes`` (the bytes of every part sent
+across the node axis).
 """
 from __future__ import annotations
 

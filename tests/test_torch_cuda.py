@@ -246,6 +246,50 @@ def test_cuda_coalesce_unaligned_rows(cuda):
     assert t_ck.max_active_clusters(32768) >= 1
 
 
+SEGMENT = 2 << 20   # the caching allocator's small-pool segment: one cudaMalloc
+
+
+def _at_segment_end(x, keep):
+    """A device copy of ``x`` whose last byte is the last of a 2 MiB
+    segment, allocated in the current (fresh) pool: a read past ``x``
+    leaves the mapping. The fillers before it go to ``keep``."""
+    nbytes = x.numel() * x.element_size()
+    probe = torch.empty(512, dtype=torch.uint8, device=x.device)
+    keep.append(probe)
+    left = SEGMENT - (probe.data_ptr() % SEGMENT + 512) - nbytes
+    while left > 0:
+        keep.append(torch.empty(min(left, 1 << 19), dtype=torch.uint8,
+                                device=x.device))
+        left -= keep[-1].numel()
+    out = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    assert (out.data_ptr() + nbytes) % SEGMENT == 0, "placement"
+    return out.view(x.dtype).view(x.shape).copy_(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 4224])
+@pytest.mark.parametrize("last", ["offsets", "lengths"])
+def test_cuda_coalesce_reads_nothing_past_its_rows(cuda, n, last):
+    """Rows whose buffer ends a segment of the allocator, as the TAM
+    drain's last pass (16 rows of 64) can find them: threads with fewer
+    than 8 entries (none, past the row) load nothing, so nothing faults,
+    and the runs equal the plain version's."""
+    offs, lens = _coalesce_case(np.random.default_rng(n), "tail", 16, n)
+    o, ln = _t(offs).to(cuda), _t(lens).to(cuda)
+    keep, pool = [], torch.cuda.MemPool()
+    with torch.cuda.use_mem_pool(pool):
+        if last == "offsets":
+            o = _at_segment_end(o, keep)
+        else:
+            ln = _at_segment_end(ln, keep)
+    got = t_ck.coalesce(o, ln)
+    torch.cuda.synchronize()
+    for g, w in zip(got, t_ref.coalesce_ref(o, ln)):
+        assert torch.equal(g, w)
+    del o, ln, keep
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.uint8,
                                    torch.int16, torch.int64])
@@ -1717,7 +1761,8 @@ def test_cuda_perf_opts_off_takes_the_pv32_variants(cuda, monkeypatch):
 
 CHECKER_KERNELS = {
     "rounds_checks": ("bitonic_sort", "coalesce", "fused_sort_pack",
-                      "zero_skip_encode", "zero_skip_decode", "pack"),
+                      "zero_skip_encode", "zero_skip_decode", "pack",
+                      "route_spans"),
     "spmd_checks": ("bitonic_sort", "coalesce")}
 
 

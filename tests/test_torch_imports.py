@@ -31,8 +31,8 @@ def test_port_has_python_and_cuda_sources():
     assert len(PORT_FILES) > 15
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
         == ["coalesce_kernel.cu", "flash.cu", "flash_bwd.cu",
-            "flash_decode.cu", "fused_round.cu", "pack.cu", "sort.cu",
-            "zero_skip.cu"]
+            "flash_decode.cu", "fused_round.cu", "pack.cu",
+            "route_spans.cu", "sort.cu", "zero_skip.cu"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -508,13 +508,15 @@ def test_cpu_path_launches_nothing():
     t_fr.fused_sort_pack(x, x, x, x, 0, 4096)
     t_fr.zero_skip_decode(*t_fr.zero_skip_encode(x))
     t_pack.pack(x[0], x[0], x[0], x[0], 0, 4096)
+    t_pack.route_spans(x, x, x, x, 100)
     q = torch.zeros((1, 64, 2, 16))
     t_flash.flash_attention_fused(q, q, q, block_q=64, block_kv=64)
     t_flash.flash_attention_bwd(q, q, q, q, q)
     assert t_kernels.launch_counts() == {
         "bitonic_sort": 0, "coalesce": 0, "fused_sort_pack": 0,
         "zero_skip_encode": 0, "zero_skip_decode": 0, "pack": 0,
-        "flash_attention_fused": 0, "flash_attention_bwd": 0}
+        "route_spans": 0, "flash_attention_fused": 0,
+        "flash_attention_bwd": 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path():
@@ -526,6 +528,7 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
                  lambda: t_fr.zero_skip_encode(x),
                  lambda: t_fr.zero_skip_decode(x, x),
                  lambda: t_pack.pack(x[0], x[0], x[0], x[0], 0, 4096),
+                 lambda: t_pack.route_spans(x, x, x, x, 100),
                  lambda: t_flash.flash_attention_fused(
                      *(torch.zeros((1, 64, 2, 16), device="meta"),) * 3,
                      block_q=64, block_kv=64),

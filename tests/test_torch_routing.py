@@ -168,6 +168,23 @@ def test_bucket_by_dest_with_drop_stats(name, caps):
         _eq(getattr(t_b, field), getattr(j_b, field))
 
 
+@pytest.mark.parametrize("caps", BUCKET_CAPS, ids=["roomy", "tight"])
+@pytest.mark.parametrize("name", NAMES)
+def test_bucket_by_dest_spans_with_drop_stats(name, caps, monkeypatch):
+    """The card's path of bucket_by_dest (the element routing as one
+    span a request, here through ``route_spans``' plain version) equals
+    the reference, drop stats included."""
+    monkeypatch.setattr(t_ex, "_routes_on_kernel", lambda *_: True)
+    n_dest, req_cap, data_cap = caps
+    t_split, _, D = _split(name, 32)
+    t_b = t_ex.bucket_by_dest(
+        t_split, t_co.request_starts(t_split), torch.as_tensor(D),
+        (t_split.offsets // 32) % n_dest, n_dest, req_cap, data_cap)
+    _, j_b = _buckets(name, *caps)
+    for field in j_b._fields:
+        _eq(getattr(t_b, field), getattr(j_b, field))
+
+
 def _j_merge_fn(o, ln, c, d):
     r, st, data = j_ex.flatten_buckets(o, ln, c, d)
     sr, ss, sd = j_ex.sort_with(r, st, data[:r.capacity])
@@ -223,6 +240,18 @@ def _j_unpack_fn(o, ln, c, ss, buf, base):
 @pytest.mark.parametrize("out_cap", [120, 40])
 @pytest.mark.parametrize("name", NAMES)
 def test_repack_sorted(name, out_cap):
+    (t_sr, t_ss, t_data), (j_sr, j_ss, j_data) = _sorted(name)
+    want = _per_rank(_j_repack_fn, out_cap)(
+        j_sr.offsets, j_sr.lengths, j_sr.count, j_ss, j_data)
+    _eq(t_ex.repack_sorted(t_sr, t_ss, t_data, out_cap), want)
+
+
+@pytest.mark.parametrize("out_cap", [120, 40])
+@pytest.mark.parametrize("name", NAMES)
+def test_repack_sorted_spans(name, out_cap, monkeypatch):
+    """The card's path of repack_sorted (one span a request, here through
+    ``route_spans``' plain version) equals the reference."""
+    monkeypatch.setattr(t_ex, "_routes_on_kernel", lambda *_: True)
     (t_sr, t_ss, t_data), (j_sr, j_ss, j_data) = _sorted(name)
     want = _per_rank(_j_repack_fn, out_cap)(
         j_sr.offsets, j_sr.lengths, j_sr.count, j_ss, j_data)
